@@ -2,24 +2,38 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives `healthivert_tpu_torch` at full width (ngf=16, 256 x 256 slices, the
-shipped pretrained_synthetic weights) and holds its CUDA kernel against the
-kernel's plain PyTorch version. Phases, each printing one JSON line:
+shipped pretrained_synthetic weights and training recipe) and holds its CUDA
+kernels against their plain PyTorch versions. Phases, each printing one
+JSON line:
 
-  1. device   card name and count, nvidia-smi name and power limit; TF32
-              is switched off for the float32 phases
-  2. build    nvcc build of csrc/attention_v2.cu for sm_90a, with the
-              -Xptxas -v register and shared-memory report
-  3. kernel   attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
-              f32 and bf16, hole band in the middle, bottom and top; and
-              one odd case (16 x 16, C=4): y, s, probs, nrm_raw
-  4. fwd_f32  generator_forward on the card (kernel) against the port's CPU
-              path (plain version), batch 2, float32
-  5. fwd_bf16 generator_forward at the 3D synthesis batch of 64, bf16:
-              one kernel launch per forward, finite outputs, slices/s
-  6. synth3d  the main path: synthesize_volumes on a 256 x 256 x 64
-              synthetic spine, vertebrae 19-21, bf16, batch 64; kernel
-              launches must equal the synthesis's forward dispatches
-  7. timing   kernel, plain version and bound at B=64, bf16 (CUDA events)
+  1. device     card name and count, nvidia-smi name and power limit; TF32
+                is switched off for the float32 phases
+  2. build      one nvcc call for sm_90a over csrc/attention_v2.cu and
+                csrc/attention_v2_bwd.cu, with the -Xptxas -v register and
+                shared-memory report of each kernel
+  3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
+                f32 and bf16, hole band in the middle, bottom and top; and
+                one odd case (16 x 16, C=4): y, s, probs, nrm_raw
+  4. kernel_bwd attention_v2_bwd kernel vs plain version on the forward
+                kernel's residuals and a random cotangent, at the same
+                cases plus 6 x 10, C=20: dfd, dbd, db_full
+  5. fwd_f32    generator_forward on the card (kernel) against the port's
+                CPU path (plain version), batch 2, float32
+  6. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
+                256), batch 2, float32, on the card against the port's CPU
+                path: every loss and every G and D gradient tensor
+  7. fwd_bf16   generator_forward at the 3D synthesis batch of 64, bf16:
+                one kernel launch per forward, finite outputs, slices/s
+  8. synth3d    the serving path: synthesize_volumes on a 256 x 256 x 64
+                synthetic spine, vertebrae 19-21, bf16, batch 64; kernel
+                launches must equal the synthesis's forward dispatches
+  9. train_bf16 the training path: run_training with the shipped recipe
+                (checkpoints/pretrained_synthetic/train_opt.txt: batch 32,
+                bf16), 2 warm-up and 20 timed steps; one forward and one
+                backward kernel launch per step, finite losses, every
+                parameter tensor moved
+ 10. timing     each kernel, its plain version and its bound, bf16, CUDA
+                events: the forward at B=64, the backward at B=32
 
 then the `kernels` line, and last the device line. Any failed check raises
 and the script exits non-zero without the last line. Run from the root of
@@ -30,6 +44,8 @@ import json
 import subprocess
 import sys
 import time
+import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -37,9 +53,18 @@ import torch
 from healthivert_tpu_torch.data.synthetic import SyntheticDataset, make_spine_volume
 from healthivert_tpu_torch.engine import infer3d
 from healthivert_tpu_torch.engine.checkpoint import PRETRAINED_NPZ, load_generator
+from healthivert_tpu_torch.engine.train_loop import run_training
+from healthivert_tpu_torch.models import pix2pix
 from healthivert_tpu_torch.models.pix2pix import Pix2PixConfig, generator_forward
 from healthivert_tpu_torch.ops import attention_cuda
-from healthivert_tpu_torch.ops.attention_cuda import attention_v2, attention_v2_reference
+from healthivert_tpu_torch.ops.attention_cuda import (
+    attention_v2,
+    attention_v2_bwd,
+    attention_v2_bwd_reference,
+    attention_v2_reference,
+)
+
+RECIPE = Path(__file__).resolve().parent / "checkpoints" / "pretrained_synthetic" / "train_opt.txt"
 
 # H100 SXM published peaks (dense): bf16 tensor cores, float32 CUDA cores,
 # HBM3 bandwidth.
@@ -53,6 +78,20 @@ TOL = {"s": 2e-5, "probs": 1e-4, "nrm_rel": 1e-5,
        "y": {torch.float32: (3e-4, 0.0), torch.bfloat16: (1e-3, 1.6e-2)}}
 # card (cuDNN f32 without TF32, the kernel) vs the port's CPU path
 FWD_TOL = {"maps": 1e-3, "pred_h": 1e-4}
+# backward kernel vs plain version: both compute in float32 from the same
+# residuals, so they differ by the order of sums; the errors are held
+# against 1e-4 of each output's largest entry (dfd reaches ~2e2 while
+# entries near zero come from cancelling sums; seen 3.3e-6 of it on an
+# H100). bf16 outputs: two bf16 ulps of the plain value plus that floor
+# (seen: within one ulp).
+BWD_TOL = 1e-4
+# one train step, card vs CPU, float32 (TF32 off): losses rtol 1e-4 (seen
+# 5e-7); gradients per tensor |card - cpu| <= GRAD_TOL * (G + |cpu|), G the
+# largest gradient of that network. cuDNN and oneDNN sum the convs in other
+# orders, and the first conv's weight gradient of D2 (a sum over 2 x 128 x
+# 128 output positions of binary-image patches) cancels to far below its
+# terms: seen 1.5e-3 there, at most 2.3e-4 in G, D1 and D3.
+LOSS_RTOL, GRAD_TOL = 1e-4, 3e-3
 
 
 def check(cond, msg):
@@ -109,7 +148,7 @@ def phase_build():
     report = [ln.strip() for ln in info.ptxas.splitlines()
               if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
     emit("build", seconds=round(info.seconds, 3), flags=list(attention_cuda.NVCC_FLAGS),
-         ptxas=report)
+         sources=[n for n in attention_cuda.SOURCES if n.endswith(".cu")], ptxas=report)
 
 
 def phase_kernel():
@@ -138,6 +177,55 @@ def phase_kernel():
         "y_bf16_atol_rtol": TOL["y"][torch.bfloat16]})
 
 
+def bwd_within(got, want, dtype):
+    """|got - want| within the backward's tolerance (see BWD_TOL); returns
+    (ok, max abs error, max abs of want)."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = float(want.abs().max())
+    allowed = BWD_TOL * scale
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2 * torch.ldexp(torch.ones_like(want),
+                                            torch.frexp(want.abs()).exponent - 8)
+    return bool((err <= allowed).all()), float(err.max()), scale
+
+
+def backward_inputs(b, hd, wd, c, band, dtype, seed=0, fscale=0.05):
+    """attention_inputs, the forward kernel's residuals and a random
+    cotangent: the arguments of attention_v2_bwd."""
+    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dtype, seed, fscale)
+    with torch.no_grad():
+        _, s, probs, nrm = attention_v2(fd, bd, b_full, mm, hd, wd, 10.0, emit_residuals=True)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, 2 * hd, 2 * wd, c)).astype(np.float32))
+    return fd, bd, b_full, dy.to(device="cuda", dtype=dtype), probs, s, nrm, mm
+
+
+def phase_kernel_bwd():
+    cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
+             for band in ("middle", "bottom", "top")]
+    cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
+              (1, 6, 10, 20, "middle", torch.float32), (1, 6, 10, 20, "bottom", torch.bfloat16)]
+    worst = {}
+    for b, hd, wd, c, band, dt in cases:
+        args = backward_inputs(b, hd, wd, c, band, dt)
+        got = attention_v2_bwd(*args, hd, wd, 10.0)
+        torch.cuda.synchronize()
+        want = attention_v2_bwd_reference(*args, hd, wd, 10.0)
+        torch.cuda.synchronize()
+        name = f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}"
+        errs = {}
+        for key, g, w, like in zip(("dfd", "dbd", "db_full"), got, want, args[:3]):
+            check(g.dtype == dt and g.shape == like.shape, f"{name}: {key} {g.dtype} {tuple(g.shape)}")
+            ok, err, scale = bwd_within(g, w, dt)
+            errs[key] = {"max_abs_err": err, "max_abs": scale}
+            check(ok, f"{name}: {key} err {err} (max |ref| {scale})")
+        check(float(args[4].amax(dim=1).min()) < 0.9, f"{name}: attention is one-hot")
+        worst[name] = errs
+    emit("kernel_bwd", cases=worst, tolerance=f"f32: {BWD_TOL} * max|ref|; bf16: 2 ulps + "
+         f"{BWD_TOL} * max|ref|")
+
+
 def to_device(batch, dev):
     return {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in batch.items()}
 
@@ -163,6 +251,49 @@ def phase_fwd_f32():
     errs["fake_b"] = max_err(got["fake_b"], want["fake_b"])
     check(errs["fake_b"] <= FWD_TOL["maps"], f"fwd_f32 fake_b err {errs['fake_b']}")
     emit("fwd_f32", batch=2, max_abs_err=errs, tolerances=FWD_TOL)
+
+
+def phase_grad_f32():
+    """One train_step at lr=0 on the card and on the CPU from the same
+    weights (shipped generator, seeded discriminators) and batch. D2 and
+    the edge loss read the binarised fine seg map, so the check first
+    requires card and CPU to put every pixel on the same side of 0.5."""
+    cfg = Pix2PixConfig(ngf=16, ndf=64, image_size=256, compute_dtype="float32")
+    batch = SyntheticDataset(batch_size=2, seed=0, n_volumes=2).sample_batch()
+    runs, seg = {}, {}
+    for dev in ("cuda", "cpu"):
+        state = pix2pix.init_state(cfg, seed=0, device=dev, gen_npz=PRETRAINED_NPZ)
+        with torch.no_grad():
+            seg[dev] = generator_forward(state.gen, to_device(batch, dev), cfg)["gen"].fine_seg.cpu()
+        before = attention_v2_bwd.launches
+        state, losses = pix2pix.train_step(state, to_device(batch, dev), 0.0, cfg)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(attention_v2_bwd.launches == before + 1, "grad_f32: backward kernel not launched once")
+        nets = {"G": state.gen, "D1": state.d1, "D2": state.d2, "D3": state.d3}
+        grads = {n: {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+                 for n, m in nets.items()}
+        runs[dev] = ({k: float(v) for k, v in losses.items()}, grads)
+    flips = int(((seg["cuda"] > 0.5) != (seg["cpu"] > 0.5)).sum())
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    loss_err = {k: abs(l_gpu[k] - v) / max(abs(v), 1e-12) for k, v in l_cpu.items()}
+    worst = {}
+    for net in g_cpu:
+        scale = max(float(w.abs().max()) for w in g_cpu[net].values())
+        ratios = {k: float(((g_gpu[net][k] - w).abs() / (scale + w.abs())).max())
+                  for k, w in g_cpu[net].items()}
+        name = max(ratios, key=ratios.get)
+        worst[net] = {"max_err_over_scale": ratios[name], "worst_tensor": name,
+                      "its_max_abs": float(g_cpu[net][name].abs().max()), "scale": scale,
+                      "tensors": len(g_cpu[net])}
+    emit("grad_f32", batch=2, losses_cuda=l_gpu, loss_rel_err=loss_err, grads=worst,
+         seg_pixels_across_half=flips, tolerances={"loss_rtol": LOSS_RTOL, "grad": GRAD_TOL})
+    check(flips == 0, f"grad_f32: card and CPU binarise {flips} fine-seg pixels differently")
+    for k, e in loss_err.items():
+        check(e <= LOSS_RTOL, f"grad_f32: loss {k} rel err {e}")
+    for net, w in worst.items():
+        check(w["scale"] > 0, f"grad_f32: {net} has no gradient")
+        check(w["max_err_over_scale"] <= GRAD_TOL, f"grad_f32: {net} gradient err {w}")
 
 
 def phase_fwd_bf16(gen, cfg, batch_size=64, reps=5):
@@ -219,14 +350,87 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     return launches
 
 
+def read_recipe(path=RECIPE):
+    """The option namespace of a saved train_opt.txt ("name: value" lines,
+    with a "[default: ...]" note where the value is not the default)."""
+    opt = {}
+    for line in path.read_text().splitlines():
+        if ":" not in line or line.startswith("-"):
+            continue
+        key, value = line.split(":", 1)
+        value = value.split("[default:")[0].strip()
+        for conv in (int, float):
+            try:
+                value = conv(value)
+                break
+            except ValueError:
+                pass
+        else:
+            value = {"True": True, "False": False, "None": None}.get(value, value)
+        opt[key.strip()] = value
+    return types.SimpleNamespace(**opt)
+
+
+def phase_train_bf16(warmup=2, timed=20):
+    """run_training on the shipped recipe; counts read per step."""
+    opt = read_recipe()
+    check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
+          f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
+    per_step, marks = [], {}
+
+    def on_step(step, losses):
+        per_step.append((attention_v2.launches, attention_v2_bwd.launches))
+        if step in (warmup, warmup + timed):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention_v2.launches = attention_v2_bwd.launches = 0
+    state, cfg = run_training(opt, max_steps=warmup + timed, device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    fwd, bwd = attention_v2.launches, attention_v2_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip([(0, 0)] + per_step, per_step)]
+    check(state.step == warmup + timed, f"train_bf16: {state.step} steps")
+    check(all(d == (1, 1) for d in steps), f"train_bf16: launches per step {steps}")
+    check(bwd > 0 and (fwd, bwd) == (state.step, state.step), f"launches {fwd}, {bwd}")
+    start = pix2pix.init_state(cfg, seed=opt.seed, device="cuda")
+    for net in ("gen", "d1", "d2", "d3"):
+        a, b = getattr(start, net), getattr(state, net)
+        for (k, p0), p1 in zip(a.named_parameters(), b.parameters()):
+            check(not torch.equal(p0, p1), f"train_bf16: {net}.{k} did not move")
+    seconds = marks[warmup + timed] - marks[warmup]
+    emit("train_bf16", recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
+         batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
+         timed_steps=timed, ms_per_step=seconds / timed * 1e3,
+         slices_per_s=opt.batch_size * timed / seconds, max_memory_allocated_bytes=peak,
+         fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
+    return bwd
+
+
 def bound_ms(b, hd, wd, c, dtype):
-    """Least time for the work of one call: operations at the peak rate of
-    the input type, bytes moved once (inputs read, output written)."""
+    """Least time for the work of one forward call: operations at the peak
+    rate of the input type, bytes moved once (inputs read, output written)."""
     num_l = hd * wd
     flops = b * (9 * 2 * num_l * num_l * c + 16 * 2 * num_l * num_l * c)
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = b * (2 * num_l * c * esize + 4 * num_l * c * esize + num_l * 4
                   + 4 * num_l * c * esize)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def bwd_bound_ms(b, hd, wd, c, dtype):
+    """The same for one backward call: the two paste adjoints (16 shifted
+    products each) and the two score adjoints (9 each), 100 L P C per
+    sample; bytes: fd, bd, b_full, dy and the three outputs in the input
+    type, s and probs (L, P) and nrm_raw and mm (L) in float32."""
+    num_l = hd * wd
+    flops = b * 2 * (16 + 16 + 9 + 9) * num_l * num_l * c
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * ((2 + 8 + 2 + 4) * num_l * c * esize + 2 * num_l * num_l * 4
+                  + 2 * num_l * 4)
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -260,9 +464,34 @@ def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
         p2 = time_events(plain, 5)
     bms, bound_by, flops, nbytes = bound_ms(b, hd, wd, c, dtype)
     ms, plain_ms = min(k1, k2), min(p1, p2)
-    emit("timing", shape=[b, hd, wd, c], dtype=str(dtype), kernel_ms=[k1, k2],
-         plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops, bytes=nbytes,
-         roofline_share=bms / ms, max_abs_err=err)
+    emit("timing", kernel="attention_v2", shape=[b, hd, wd, c], dtype=str(dtype),
+         kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
+         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    args = backward_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=1.0)
+    kernel = lambda: attention_v2_bwd(*args, hd, wd)
+    plain = lambda: attention_v2_bwd_reference(*args, hd, wd)
+    got, want = kernel(), plain()
+    results = [bwd_within(g, w, dtype) for g, w in zip(got, want)]
+    err = max(r[1] for r in results)
+    check(all(r[0] for r in results), f"timing shape: backward errs {results}")
+    for _ in range(3):
+        kernel()
+        plain()
+    torch.cuda.synchronize()
+    # plain, kernel, kernel, plain
+    p1 = time_events(plain, 3)
+    k1 = time_events(kernel, 10)
+    k2 = time_events(kernel, 10)
+    p2 = time_events(plain, 3)
+    bms, bound_by, flops, nbytes = bwd_bound_ms(b, hd, wd, c, dtype)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    emit("timing", kernel="attention_v2_bwd", shape=[b, hd, wd, c], dtype=str(dtype),
+         kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
+         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
 
 
@@ -274,18 +503,30 @@ def main():
     phase_device()
     phase_build()
     phase_kernel()
+    phase_kernel_bwd()
     phase_fwd_f32()
+    phase_grad_f32()
     cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="bfloat16")
     gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
     phase_fwd_bf16(gen, cfg)
     launches = phase_synth3d(gen, cfg)
+    del gen
+    bwd_launches = phase_train_bf16()
     t = phase_timing()
+    tb = phase_timing_bwd()
     print(json.dumps({"kernels": [{
         "name": "attention_v2", "route": "cuda",
         "source": "healthivert_tpu_torch/csrc/attention_v2.cu",
         "replaces": "healthivert_tpu/ops/attention_pallas.py:476",
         "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "attention_v2_bwd", "route": "cuda",
+        "source": "healthivert_tpu_torch/csrc/attention_v2_bwd.cu",
+        "replaces": "healthivert_tpu/ops/attention_pallas.py:772",
+        "launches": bwd_launches, "max_abs_err": tb["max_abs_err"], "ms": tb["ms"],
+        "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

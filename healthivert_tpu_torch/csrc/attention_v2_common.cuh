@@ -1,0 +1,76 @@
+// Helpers shared by the contextual-attention forward (attention_v2.cu) and
+// backward (attention_v2_bwd.cu): type conversion, the GEMM tile shape, the
+// zero-filled 2-D shift of a feature map and the sigma+/sigma- steps of the
+// second fuse pass. Inline functions and constants only, so that both
+// translation units of the library can include it.
+//
+// Layouts: feature maps (B, hd, wd, C) and full-resolution maps
+// (B, 2hd, 2wd, C), NHWC, T = float or __nv_bfloat16; (L, P) matrices float,
+// row l = background patch, column p = foreground query; L = P = hd * wd.
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace hv_attn {
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// GEMM tiles: 64 x 64 outputs per block, 16-deep steps, 256 threads that
+// each own a 4 x 4 patch of the tile.
+constexpr int TM = 64;
+constexpr int TN = 64;
+constexpr int TK = 16;
+constexpr int GEMM_THREADS = 256;
+constexpr int SMEM_PAD = 4;
+
+// Column-sweep blocks over an (L, P) matrix: 32 query columns per block, one
+// per lane, and 8 row groups, one per warp.
+constexpr int SM_COLS = 32;
+constexpr int SM_ROWS = 8;
+
+// Value of a (hd, wd, C) feature map at grid index `pos` shifted by
+// (dy, dx), zero outside the grid: a 2-D shift, never a shift of the
+// flattened index (which would wrap across rows).
+template <typename T>
+__device__ __forceinline__ float shifted(const T* __restrict__ base, int pos, int dy, int dx,
+                                         int c, int hd, int wd, int C) {
+  const int y = pos / wd + dy, x = pos % wd + dx;
+  if (y < 0 || y >= hd || x < 0 || x >= wd || c >= C) return 0.f;
+  return to_f(base[((size_t)y * wd + x) * C + c]);
+}
+
+// The +-1 steps of the transposed flatten of the (L/n, n) grid; -1 marks the
+// invalid end (zero in the reference's permuted shifts).
+__device__ __forceinline__ int sigma_plus(int i, int n, int m) {
+  if (i < m - n) return i + n;
+  if (i < m - 1) return i + n - m + 1;
+  return -1;
+}
+__device__ __forceinline__ int sigma_minus(int i, int n, int m) {
+  if (i == 0) return -1;
+  if (i < n) return i + m - n - 1;
+  return i - n;
+}
+
+// One 16-deep step of a 64 x 64 tile product: acc[i][j] += sum over k of
+// As[k][ty * 4 + i] * Bs[k][tx * 4 + j].
+__device__ __forceinline__ void tile_fma(const float (*As)[TM + SMEM_PAD],
+                                         const float (*Bs)[TN + SMEM_PAD], int tx, int ty,
+                                         float (&acc)[4][4]) {
+  for (int k = 0; k < TK; ++k) {
+    float a[4], bv[4];
+    for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
+    for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
+    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
+  }
+}
+
+}  // namespace hv_attn

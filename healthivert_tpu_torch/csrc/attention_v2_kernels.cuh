@@ -6,28 +6,9 @@
 // y (B, 2hd, 2wd, C) T. L = P = hd * wd. Every sum is taken in float.
 #pragma once
 
-#ifdef __CUDACC__
-#include <cuda_bf16.h>
-#endif
+#include "attention_v2_common.cuh"
 
 namespace hv_attn {
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// GEMM tiles: 64 x 64 outputs per block, 16-deep steps, 256 threads that
-// each own a 4 x 4 patch of the tile.
-constexpr int TM = 64;
-constexpr int TN = 64;
-constexpr int TK = 16;
-constexpr int GEMM_THREADS = 256;
-constexpr int SMEM_PAD = 4;
 
 // (1) nrm_raw[b, l] = sqrt(sum over the 3x3 window around l, zero outside the
 // hd x wd grid, of ||bd[b, pixel]||^2).
@@ -54,17 +35,6 @@ __global__ void patch_norm_kernel(const T* __restrict__ bd, float* __restrict__ 
     }
   }
   nrm_raw[idx] = sqrtf(acc);
-}
-
-// Value of a (hd, wd, C) feature map at grid index `pos` shifted by
-// (dy, dx), zero outside the grid: a 2-D shift, never a shift of the
-// flattened index (which would wrap across rows).
-template <typename T>
-__device__ __forceinline__ float shifted(const T* __restrict__ base, int pos, int dy, int dx,
-                                         int c, int hd, int wd, int C) {
-  const int y = pos / wd + dy, x = pos % wd + dx;
-  if (y < 0 || y >= hd || x < 0 || x >= wd || c >= C) return 0.f;
-  return to_f(base[((size_t)y * wd + x) * C + c]);
 }
 
 // (2) s[b, l, p] = sum over the 9 window offsets o and channels c of
@@ -100,13 +70,7 @@ score_kernel(const T* __restrict__ fd, const T* __restrict__ bd,
         Bs[k][m] = p < L ? shifted(fdb, p, dy, dx, c0 + k, hd, wd, C) : 0.f;
       }
       __syncthreads();
-      for (int k = 0; k < TK; ++k) {
-        float a[4], bv[4];
-        for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
-      }
+      tile_fma(As, Bs, tx, ty, acc);
       __syncthreads();
     }
   }
@@ -120,19 +84,6 @@ score_kernel(const T* __restrict__ fd, const T* __restrict__ bd,
       if (p < L) row[p] = acc[i][j] / nrm;
     }
   }
-}
-
-// The +-1 steps of the transposed flatten of the (L/n, n) grid; -1 marks the
-// invalid end (zero in the reference's permuted shifts).
-__device__ __forceinline__ int sigma_plus(int i, int n, int m) {
-  if (i < m - n) return i + n;
-  if (i < m - 1) return i + n - m + 1;
-  return -1;
-}
-__device__ __forceinline__ int sigma_minus(int i, int n, int m) {
-  if (i == 0) return -1;
-  if (i < n) return i + m - n - 1;
-  return i - n;
 }
 
 // fused[l, p] = sum over sigma in {id, sigma+, sigma-} and d in {-1, 0, 1} of
@@ -153,9 +104,6 @@ __device__ __forceinline__ float fused_score(const float* __restrict__ sb, int l
   }
   return f;
 }
-
-constexpr int SM_COLS = 32;  // query columns per block, one per lane
-constexpr int SM_ROWS = 8;   // row groups per block, one per warp
 
 // (3) Column softmax over l of fused * g * scale, times g again:
 // probs[l, p] = exp(fused * g[l] * scale - max) / sum * g[l]. A gated row
@@ -265,13 +213,7 @@ paste_kernel(const float* __restrict__ probs, const T* __restrict__ b_full,
         Bs[k][mn] = vb;
       }
       __syncthreads();
-      for (int k = 0; k < TK; ++k) {
-        float av[4], bv[4];
-        for (int i = 0; i < 4; ++i) av[i] = As[k][ty * 4 + i];
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
-        for (int i = 0; i < 4; ++i)
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-      }
+      tile_fma(As, Bs, tx, ty, acc);
       __syncthreads();
     }
   }

@@ -18,7 +18,7 @@ import torch.nn as nn
 
 from ..ops.contextual_attention import contextual_attention
 from ..ops.image import resize_nearest
-from .layers import Conv2dBlock
+from .layers import Conv2dBlock, SNConv, _l2, lecun_normal_
 
 
 class GeneratorOut(NamedTuple):
@@ -215,3 +215,20 @@ class Generator(nn.Module):
             c(coarse_seg), c(fine_seg), c(x_stage1), c(x_stage2), offsets,
             pred1_h, pred2_h,
         )
+
+
+@torch.no_grad()
+def init_generator(gen: Generator, generator: torch.Generator) -> Generator:
+    """The flax generator's own initialisation, drawn from `generator`:
+    lecun-normal conv and dense kernels, zero biases, spectral-norm vectors
+    l2(N(0, 1)). The reference builds the generator without init_net, so
+    --init_type does not apply to it."""
+    for m in gen.modules():
+        if isinstance(m, SNConv):
+            lecun_normal_(m.weight, generator)
+            m.bias.zero_()
+            m.u.copy_(_l2(torch.randn(m.u.shape, generator=generator)))
+        elif isinstance(m, nn.Linear):
+            lecun_normal_(m.weight, generator)
+            m.bias.zero_()
+    return gen

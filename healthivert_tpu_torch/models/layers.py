@@ -1,17 +1,25 @@
-"""Spectrally normalized conv blocks of the generator.
+"""Spectrally normalized conv blocks of the generator, and the initialisers
+of the discriminators.
 
 Counterpart of healthivert_tpu/models/layers.py (`_ACT` :23-30, `SNConv`
-:37-109, `Conv2dBlock` :194-222), float32 and bfloat16 only; the int8 path
-(:111-191) is not ported yet. Modules run NCHW inside; the weight is OIHW.
+:37-109, `Conv2dBlock` :194-222, `normal_init`/`weight_init` :225-266),
+float32 and bfloat16 only; the int8 path (:111-191) is not ported yet.
+Modules run NCHW inside; the weight is OIHW.
 
 Spectral norm follows the JAX package, not torch.nn.utils.spectral_norm:
 with the stored u, v = l2(W^T u), u_new = l2(W v), sigma = u_new . (W v),
-l2(x) = x / (||x|| + 1e-12), and the kernel is divided by sigma. Serving
-never updates u, so the normalized kernel is computed once per weight and
-reused until the weight or u changes.
+l2(x) = x / (||x|| + 1e-12), and the kernel is divided by sigma. u and v
+are constants for autodiff; the gradient reaches W through W / sigma and
+through the W of sigma. A forward never updates u (the JAX train step
+applies its generator with update_sn=False): training advances it
+explicitly with `SNConv.power_iteration`. Without autograd the normalized
+kernel is computed once per weight and reused until the weight or u
+changes.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -31,11 +39,18 @@ def _l2(x, eps=1e-12):
     return x / (torch.linalg.vector_norm(x) + eps)
 
 
+def _power_step(mat: torch.Tensor, u: torch.Tensor):
+    """(v, u_new) of one power iteration on mat (out, d) from u, detached."""
+    with torch.no_grad():
+        v = _l2(mat.T @ u)
+        return v, _l2(mat @ v)
+
+
 def spectral_normalize(weight: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """weight / sigma with one power iteration from u (float32)."""
+    """weight / sigma with one power iteration from u (float32); u and v
+    carry no gradient, the weight does (in both places it appears)."""
     mat = weight.reshape(weight.shape[0], -1)  # (out, d)
-    v = _l2(mat.T @ u)
-    u_new = _l2(mat @ v)
+    v, u_new = _power_step(mat, u)
     sigma = u_new @ (mat @ v)
     return weight / sigma
 
@@ -60,14 +75,24 @@ class SNConv(nn.Module):
         self._cache = None
 
     def normalized_weight(self) -> torch.Tensor:
-        """weight / sigma in float32, recomputed only when weight or u change."""
+        """weight / sigma in float32. Under autograd it is computed anew on
+        every call; otherwise only when weight or u change."""
         w, u = self.weight, self.u
+        if torch.is_grad_enabled() and w.requires_grad:
+            return spectral_normalize(w.float(), u.float())
         key = (w.data_ptr(), w._version, u.data_ptr(), u._version)
         if key != self._cache_key:
             with torch.no_grad():
                 self._cache = spectral_normalize(w.float(), u.float())
             self._cache_key = key
         return self._cache
+
+    @torch.no_grad()
+    def power_iteration(self):
+        """Advance u by one power iteration from the current weight (the
+        JAX package's `_update_sn_tree` for this conv)."""
+        mat = self.weight.float().reshape(self.weight.shape[0], -1)
+        self.u.copy_(_power_step(mat, self.u.float())[1])
 
     def forward(self, x):
         dt = self.dtype or x.dtype
@@ -88,3 +113,67 @@ class Conv2dBlock(nn.Module):
 
     def forward(self, x):
         return _ACT[self.activation](self.conv(x))
+
+
+def normal_init(tensor: torch.Tensor, generator: torch.Generator, stddev: float = 0.02,
+                mean: float = 0.0) -> torch.Tensor:
+    """Fill `tensor` from N(mean, stddev) (torch init.normal_(w, mean, 0.02)
+    of the reference, for conv kernels and BatchNorm scales)."""
+    with torch.no_grad():
+        draw = torch.randn(tensor.shape, generator=generator, dtype=torch.float32)
+        return tensor.copy_(mean + stddev * draw)
+
+
+def _fans(weight: torch.Tensor):
+    """(fan_in, fan_out) of an OIHW conv or (out, in) dense weight."""
+    receptive = math.prod(weight.shape[2:])
+    return weight.shape[1] * receptive, weight.shape[0] * receptive
+
+
+def weight_init(weight: torch.Tensor, generator: torch.Generator,
+                init_type: str = "normal", init_gain: float = 0.02) -> torch.Tensor:
+    """Fill a conv kernel as --init_type/--init_gain ask (the JAX package's
+    `weight_init`, reference networks.py:68-99):
+      normal      N(0, init_gain)
+      xavier      N(0, init_gain^2 * 2 / (fan_in + fan_out))
+      kaiming     N(0, 2 / fan_in) (init_gain is not read, as in the reference)
+      orthogonal  init_gain times orthonormal columns of the (kh kw in, out)
+                  matrix, flax's flattening with column_axis=-1
+    The draws come from `generator` and differ from jax.random's: the
+    distributions are the same, the numbers are not."""
+    fan_in, fan_out = _fans(weight)
+    if init_type == "normal":
+        return normal_init(weight, generator, init_gain)
+    if init_type == "xavier":
+        return normal_init(weight, generator, init_gain * (2.0 / (fan_in + fan_out)) ** 0.5)
+    if init_type == "kaiming":
+        return normal_init(weight, generator, (2.0 / fan_in) ** 0.5)
+    if init_type == "orthogonal":
+        out_f = weight.shape[0]
+        rows = weight.numel() // out_f
+        a = torch.randn((max(rows, out_f), min(rows, out_f)), generator=generator)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        mat = q if rows >= out_f else q.T  # (rows, out_f)
+        if weight.dim() == 4:
+            o, i, kh, kw = weight.shape
+            mat = mat.reshape(kh, kw, i, o).permute(3, 2, 0, 1)
+        else:
+            mat = mat.T
+        with torch.no_grad():
+            return weight.copy_(init_gain * mat)
+    raise NotImplementedError(f"initialization method [{init_type}] is not implemented")
+
+
+def lecun_normal_(tensor: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel initialiser: a normal truncated to two standard
+    deviations, scaled to variance 1 / fan_in (the generator's own init)."""
+    fan_in, _ = _fans(tensor)
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    draw = torch.randn(tensor.shape, generator=generator)
+    bad = draw.abs() > 2.0
+    while bool(bad.any()):
+        draw[bad] = torch.randn(int(bad.sum()), generator=generator)
+        bad = draw.abs() > 2.0
+    with torch.no_grad():
+        return tensor.copy_(std * draw)

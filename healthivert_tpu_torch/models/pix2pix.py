@@ -1,47 +1,94 @@
-"""The generator's serving forward: two-stage generator, SHRM paste-back,
-seg binarisation, the discriminator-local crops and the Sobel edge maps.
+"""The HealthiVert-GAN training step and the generator's serving forward.
 
-Counterpart of healthivert_tpu/models/pix2pix.py (`Pix2PixConfig` :46,
-`generator_forward` :215-282) without training: `update_sn=True`, the
-discriminators, the optimizer and int8 wait for later slices.
+Counterpart of healthivert_tpu/models/pix2pix.py: `Pix2PixConfig` (:46-125),
+`build_modules` (:145-176), `make_optimizer` (:179-182), `init_state`
+(:185-212), `generator_forward` (:215-282), `_update_sn_tree` (:386-405),
+`train_step` (:408-606) and the learning-rate schedule (:609-681). The JAX
+`_d_forward` (:375-383) is the discriminators' own forward here, whose
+`update_stats` flag stands for the mutable batch_stats collection. int8
+(:285-373), `remat`, `vmap_discriminators` and the seg discriminator are
+not ported yet.
+
+Loss surface, as in the JAX package (reference pix2pix_model.py:331-353):
+  G_GAN   = (gan(D1(fake)) + gan(D2(fake_seg)) + gan(D3(fake_local))) / 6
+  maskL1  = (L1(fake, real) + L1(fake_coarse, real)) * .5 * lambda_L1
+            * (W * W / count_nonzero(mask)) * 2
+  coarse_Dice = (1 - dice(coarse_seg, normal_vert)) * 10
+  G_Dice  = (1 - dice(fine_seg, vert_seg)) * 15
+  edge    = mse(sobel(binarized fine_seg), sobel(vert_seg)) * 800
+  h       = mean(|pred1_h - h| / h * 40 + |pred2_h - h| / h * 40)
+D2's GAN term and the edge term pass a hard 0.5 threshold, so they give the
+generator no gradient (as in the reference); they are still logged.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 from typing import Dict
 
 import torch
+import torch.nn as nn
 
 from ..ops import geometry as geo
-from ..ops.image import sobel_edges
-from .generator import Generator
+from ..ops.image import dice_coeff, sobel_edges
+from ..utils.device import resolve_device
+from ..utils.weights import load_npz_state_dict
+from .discriminator import NLayerDiscriminator, PixelDiscriminator, gan_loss
+from .generator import Generator, init_generator
+from .layers import SNConv
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
 class Pix2PixConfig:
-    """The fields of the JAX config that the serving path reads.
+    """Static training and serving config, with the JAX package's fields and
+    defaults. ngf=16: the reference hard-codes the generator width to 16.
 
-    ngf=16: the reference hard-codes the generator width to 16."""
+    gan_head_preupdate (default on, as in the JAX package): the generator's
+    GAN terms read the discriminators as they were before this step's
+    updates (a simultaneous update) instead of after them (the reference's
+    alternating one); equal to False at lr=0. crop_d3 (default on): D3 sees
+    a 48 x 128 crop that holds every non-zero pixel of its input instead of
+    the full frame."""
 
     ngf: int = 16
-    image_size: int = 256
+    ndf: int = 64
+    net_d: str = "basic"  # basic | n_layers | pixel
+    n_layers_d: int = 3  # read when net_d == "n_layers"
+    norm: str = "batch"  # batch | instance | none (discriminator norm layers)
+    lr: float = 2e-4
+    beta1: float = 0.5
+    lambda_l1: float = 200.0
+    gan_mode: str = "vanilla"  # vanilla | lsgan | wgangp
+    init_type: str = "normal"  # normal | xavier | kaiming | orthogonal (discriminators)
+    init_gain: float = 0.02
     maxheight: float = 40.0
-    compute_dtype: str = "float32"  # float32 | bfloat16
+    image_size: int = 256
+    compute_dtype: str = "float32"  # float32 | bfloat16; parameters stay float32
     compute_offsets: bool = False  # attention argmax offsets (flow viz)
+    vmap_discriminators: bool = False
+    remat: bool = False
+    gan_head_preupdate: bool = True
+    crop_d3: bool = True
 
     def __post_init__(self):
         if self.compute_dtype not in _DTYPES:
             raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port serves "
+                f"compute_dtype={self.compute_dtype!r}: the port runs "
                 f"{sorted(_DTYPES)} (int8 is not ported yet)"
             )
+        for unported, what in ((self.remat, "remat=True"),
+                               (self.vmap_discriminators, "vmap_discriminators=True"),
+                               (self.net_d == "seg", "net_d='seg'")):
+            if unported:
+                raise NotImplementedError(f"{what} is not ported yet (queued in ROADMAP.md)")
 
     @property
     def module_dtype(self):
-        """Conv dtype of the generator: None (follow the input) or bf16."""
+        """Conv dtype of the networks: None (follow the input) or bf16."""
         return _DTYPES[self.compute_dtype]
 
 
@@ -50,15 +97,79 @@ def build_generator(cfg: Pix2PixConfig) -> Generator:
                      compute_offsets=cfg.compute_offsets)
 
 
+def build_discriminator(cfg: Pix2PixConfig) -> nn.Module:
+    """define_D's dispatch (reference networks.py:163-209)."""
+    if cfg.net_d == "basic":
+        return NLayerDiscriminator(1, cfg.ndf, 3, cfg.norm, cfg.module_dtype)
+    if cfg.net_d == "n_layers":
+        return NLayerDiscriminator(1, cfg.ndf, cfg.n_layers_d, cfg.norm, cfg.module_dtype)
+    if cfg.net_d == "pixel":
+        return PixelDiscriminator(1, cfg.ndf, cfg.norm, cfg.module_dtype)
+    raise NotImplementedError(f"Discriminator model name [{cfg.net_d}] is not recognized")
+
+
+def build_modules(cfg: Pix2PixConfig):
+    """(generator, (D1, D2, D3)): three discriminators of one architecture,
+    each with its own weights (reference pix2pix_model.py:114-119)."""
+    return build_generator(cfg), tuple(build_discriminator(cfg) for _ in range(3))
+
+
+def make_optimizer(params, cfg: Pix2PixConfig) -> torch.optim.Adam:
+    """torch.optim.Adam(lr, betas=(beta1, 0.999)): the update of
+    optax.scale_by_adam followed by -lr. train_step sets lr on every step."""
+    return torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.beta1, 0.999), eps=1e-8)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The networks and their optimizers; train_step updates them in place.
+    BatchNorm running statistics live in the discriminators' buffers and the
+    spectral-norm vectors in the generator's."""
+
+    step: int
+    gen: Generator
+    d1: nn.Module
+    d2: nn.Module
+    d3: nn.Module
+    opt_g: torch.optim.Adam
+    opt_d1: torch.optim.Adam
+    opt_d2: torch.optim.Adam
+    opt_d3: torch.optim.Adam
+
+
+def init_state(cfg: Pix2PixConfig, seed: int = 0, device="cuda",
+               gen_npz=None) -> TrainState:
+    """Networks initialised from `seed` (a CPU torch.Generator, so the draw
+    is the same on every device), or the generator from an exported
+    ``.npz``; moved to `device`, with fresh Adam states."""
+    dev = resolve_device(device)
+    gen, discs = build_modules(cfg)
+    rng = torch.Generator().manual_seed(seed)
+    if gen_npz is not None:
+        gen.load_state_dict(load_npz_state_dict(gen_npz))
+    else:
+        init_generator(gen, rng)
+    for d in discs:
+        d.init_weights(rng, cfg.init_type, cfg.init_gain)
+    gen.to(dev).train()
+    for d in discs:
+        d.to(dev).train()
+    opts = [make_optimizer(m.parameters(), cfg) for m in (gen, *discs)]
+    return TrainState(0, gen, *discs, *opts)
+
+
 def generator_forward(gen: Generator, batch: Dict[str, torch.Tensor],
                       cfg: Pix2PixConfig, update_sn: bool = False):
-    """Full forward including SHRM paste-back, for serving.
+    """Full forward including SHRM paste-back.
 
     batch: NHWC tensors context, mask, cam, full, vert_seg (B, H, W, 1) and
     (B,) slice_ratio, height, x1, x2, all on the generator's device.
-    Returns the JAX function's dict without `new_sn` (u is never updated)."""
+    Returns the JAX function's dict without `new_sn`: a forward never
+    updates u (training advances it with `_update_sn_tree`)."""
     if update_sn:
-        raise NotImplementedError("update_sn=True belongs to training, not ported yet")
+        raise NotImplementedError(
+            "update_sn=True is not ported: train_step advances u with _update_sn_tree"
+        )
     if cfg.compute_dtype == "bfloat16":
         batch = {
             k: (v.to(torch.bfloat16) if v.dtype == torch.float32 and v.dim() == 4 else v)
@@ -95,3 +206,169 @@ def generator_forward(gen: Generator, batch: Dict[str, torch.Tensor],
         fake_edges=sobel_edges(fine_seg_bin),
         real_edges=sobel_edges(batch["vert_seg"]),
     )
+
+
+@torch.no_grad()
+def _update_sn_tree(gen: Generator):
+    """One power iteration on every stored u vector, from the weights alone."""
+    for m in gen.modules():
+        if isinstance(m, SNConv):
+            m.power_iteration()
+
+
+@contextlib.contextmanager
+def _frozen(modules):
+    """Parameters of `modules` stop requiring grad for the duration: their
+    forwards then pass gradients to their inputs only."""
+    params = [p for m in modules for p in m.parameters()]
+    flags = [p.requires_grad for p in params]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(params, flags):
+            p.requires_grad_(flag)
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
+               cfg: Pix2PixConfig = Pix2PixConfig()):
+    """One optimization step: D1, D2, D3, then G, as in the JAX package.
+    Updates `state` in place and returns (state, losses), the losses as 0-d
+    float32 tensors on the device. Afterwards every parameter's .grad holds
+    this step's gradient.
+
+    The generator runs once; its GAN terms read the discriminators with
+    their parameters frozen and without a running-statistics update. With
+    gan_head_preupdate that happens before the discriminator updates (so
+    its graph is freed early); otherwise after them. The fakes reach the
+    discriminator updates detached, and each discriminator sees its fake
+    batch and then its real batch in two forwards (BatchNorm statistics are
+    per forward). u advances from the pre-update generator weights."""
+    gen, discs = state.gen, (state.d1, state.d2, state.d3)
+    opts_d = (state.opt_d1, state.opt_d2, state.opt_d3)
+    for opt in (state.opt_g, *opts_d):
+        for group in opt.param_groups:
+            group["lr"] = float(lr)
+    full, mask = batch["full"], batch["mask"]
+    s = cfg.image_size
+    losses = {}
+
+    gen.zero_grad(set_to_none=True)
+    f = generator_forward(gen, batch, cfg)
+    outs = (f["fake_b"], f["fake_b_coarse"], f["gen"].coarse_seg, f["gen"].fine_seg,
+            f["pred1_h"], f["pred2_h"])
+    fake_b, fine_seg = outs[0], outs[3]
+
+    fine_seg_bin = (fine_seg > 0.5).to(fine_seg.dtype)
+    center = geo.local_crop_mask(s, s, device=full.device)[None, :, :, None]
+    fake_local = mask * fake_b * center
+    real_local = mask * full * center
+    crop = lambda x: x
+    if cfg.crop_d3:
+        crop = lambda x: geo.band_crop_batch(x, mask, min(48, s), min(128, s))
+        fake_local, real_local = crop(fake_local), crop(real_local)
+    real_edges = sobel_edges(batch["vert_seg"])
+
+    def g_loss_head():
+        # reductions in float32 whatever the compute dtype
+        fb, fbc, cs, fs, p1h, p2h = (o.float() for o in outs)
+        seg_bin = (fs > 0.5).float()
+        with _frozen(discs):
+            heads = (fb, seg_bin, crop(mask * fb * center))
+            l_gan = sum(gan_loss(d(x, update_stats=False), True, cfg.gan_mode)
+                        for d, x in zip(discs, heads)) / 6.0
+        mask_count = torch.count_nonzero(mask).float()
+        l_l1 = (
+            (torch.mean(torch.abs(fb - full)) + torch.mean(torch.abs(fbc - full)))
+            * 0.5
+            * cfg.lambda_l1
+            * (s * s / torch.clamp(mask_count, min=1.0))
+            * 2.0
+        )
+        l_coarse_dice = (1.0 - dice_coeff(cs, batch["normal_vert"])) * 10.0
+        l_dice = (1.0 - dice_coeff(fs, batch["vert_seg"])) * 15.0
+        l_edge = torch.mean((sobel_edges(seg_bin) - real_edges) ** 2) * 800.0
+        h = batch["height"].float()
+        l_h = torch.mean(torch.abs(p1h - h) / h * 40.0 + torch.abs(p2h - h) / h * 40.0)
+        total = l_gan + l_l1 + l_dice + l_edge + l_coarse_dice + l_h
+        total.backward()
+        return total, dict(G_GAN=l_gan, G_maskL1=l_l1, G_Dice=l_dice,
+                           coarse_Dice=l_coarse_dice, edge=l_edge, h=l_h)
+
+    if cfg.gan_head_preupdate:
+        g_total, g_losses = g_loss_head()
+
+    pairs = ((fake_b, full), (fine_seg_bin, batch["vert_seg"]), (fake_local, real_local))
+    for i, (d, opt, (fake, real)) in enumerate(zip(discs, opts_d, pairs), start=1):
+        opt.zero_grad(set_to_none=True)
+        l_fake = gan_loss(d(fake.detach()), False, cfg.gan_mode)
+        l_real = gan_loss(d(real), True, cfg.gan_mode)
+        ((l_fake + l_real) * 0.5).backward()
+        opt.step()
+        losses[f"D_fake_{i}"], losses[f"D_real_{i}"] = l_fake.detach(), l_real.detach()
+
+    if not cfg.gan_head_preupdate:
+        g_total, g_losses = g_loss_head()
+
+    _update_sn_tree(gen)  # from the weights before G's update
+    state.opt_g.step()
+    losses.update({k: v.detach() for k, v in g_losses.items()})
+    losses["G_total"] = g_total.detach()
+    state.step += 1
+    return state, losses
+
+
+def linear_lr_scale(epoch: int, epoch_count: int, n_epochs: int, n_epochs_decay: int) -> float:
+    """networks.py:52-56: constant for n_epochs, then linear decay to zero."""
+    return 1.0 - max(0, epoch + epoch_count - n_epochs) / float(n_epochs_decay + 1)
+
+
+class LRSchedule:
+    """Epoch-level learning-rate multiplier, a copy of the JAX package's
+    (get_scheduler parity, reference networks.py:39-65): linear | step |
+    plateau | cosine. scale() takes the absolute epoch; step and cosine are
+    functions of it, and linear converts back to the per-launch counter of
+    the reference's LambdaLR, so a resumed run continues the fresh run's
+    schedule."""
+
+    def __init__(self, opt):
+        self.policy = getattr(opt, "lr_policy", "linear")
+        self.opt = opt
+        # ReduceLROnPlateau state (torch defaults: best=inf for mode=min,
+        # cooldown=0, eps=1e-8, min_lr=0)
+        self._plateau_best = float("inf")
+        self._plateau_bad = 0
+        self._plateau_cooldown = 0
+        self._plateau_lr = float(getattr(opt, "lr", 2e-4))
+
+    def scale(self, epoch: int, metric: float | None = None) -> float:
+        o = self.opt
+        if self.policy == "linear":
+            rel = epoch - o.epoch_count + 1
+            return linear_lr_scale(rel, o.epoch_count, o.n_epochs, o.n_epochs_decay)
+        if self.policy == "step":
+            return 0.1 ** (epoch // o.lr_decay_iters)
+        if self.policy == "cosine":
+            return 0.5 * (1.0 + math.cos(math.pi * epoch / o.n_epochs))
+        if self.policy == "plateau":
+            # ReduceLROnPlateau(mode='min', factor=0.2, threshold=0.01,
+            # patience=5) as torch's step() runs it (networks.py:57-58)
+            if metric is not None:
+                metric = float(metric)
+                if metric < self._plateau_best * (1 - 0.01):
+                    self._plateau_best = metric
+                    self._plateau_bad = 0
+                else:
+                    self._plateau_bad += 1
+                if self._plateau_cooldown > 0:
+                    self._plateau_cooldown -= 1
+                    self._plateau_bad = 0
+                if self._plateau_bad > 5:
+                    new_lr = max(self._plateau_lr * 0.2, 0.0)
+                    if self._plateau_lr - new_lr > 1e-8:
+                        self._plateau_lr = new_lr
+                    self._plateau_cooldown = 0
+                    self._plateau_bad = 0
+            return self._plateau_lr / float(getattr(self.opt, "lr", 2e-4))
+        raise NotImplementedError(f"learning rate policy [{self.policy}]")

@@ -1,15 +1,20 @@
-"""Fused contextual-attention forward: the CUDA kernel and its plain version.
+"""Fused contextual attention, forward and backward: the CUDA kernels and
+their plain versions, and the autograd Function that joins them.
 
 `attention_v2` replaces the Pallas TPU kernel of the same name
 (healthivert_tpu/ops/attention_pallas.py:476, body `_attention_v2_kernel`
-:304-470) with the same arguments and results, in NHWC. On a CUDA tensor it
-launches the hand-written kernel of csrc/attention_v2.cu (built for sm_90a
-with nvcc at first use, loaded with ctypes) or raises; on a CPU tensor it
-runs `attention_v2_reference`, the plain PyTorch version, which the CPU
-tests hold against the JAX package.
+:304-470) and `attention_v2_bwd` replaces `attention_v2_bwd` (:772, body
+`_attention_v2_bwd_kernel` :597-766), with the same arguments and results,
+in NHWC. On a CUDA tensor each launches its hand-written kernel
+(csrc/attention_v2.cu, csrc/attention_v2_bwd.cu; one library built for
+sm_90a with nvcc at first use, loaded with ctypes) or raises; on a CPU
+tensor each runs its plain PyTorch version (`attention_v2_reference`,
+`attention_v2_bwd_reference`), which the CPU tests hold against the JAX
+package. `AttentionV2Function` is the counterpart of the custom VJP
+`attention_v2_diff` (:822-850).
 
-The kernel's source note says what bounds it on an H100 and what its design
-does about it.
+Each kernel's source note says what bounds it on an H100 and what its
+design does about it.
 """
 
 from __future__ import annotations
@@ -26,12 +31,19 @@ from typing import NamedTuple
 
 import torch
 
-from .contextual_attention import _fold_overlap_add, extract_patches, fuse_scores
+from .contextual_attention import (
+    _fold_overlap_add,
+    extract_patches,
+    fuse_adjoint,
+    fuse_scores,
+    patches_adjoint,
+)
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention_v2.cu", "attention_v2_kernels.cuh")
+SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_v2_common.cuh",
+           "attention_v2_kernels.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -60,9 +72,10 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> BuildInfo:
-    """Compile csrc/attention_v2.cu into BUILD_DIR (named by a hash of the
-    sources and flags, so a stale library is never loaded) and return where
-    it is, how long nvcc took and its ptxas report. force=True rebuilds."""
+    """Compile the .cu files of SOURCES, in one nvcc call, into one library
+    in BUILD_DIR (named by a hash of the sources and flags, so a stale
+    library is never loaded) and return where it is, how long nvcc took and
+    its ptxas report. force=True rebuilds."""
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
@@ -71,7 +84,8 @@ def build(force: bool = False) -> BuildInfo:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "attention_v2.cu")]
+    cus = [str(CSRC / name) for name in SOURCES if name.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -92,6 +106,11 @@ def load_library(force_build: bool = False):
             lib = ctypes.CDLL(str(info.path))
             fn = lib.hv_attention_v2_forward
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_v2_backward
+            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -184,3 +203,128 @@ def attention_v2(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0,
 
 
 attention_v2.launches = 0  # kernel launches in this process, counted above
+
+
+def attention_v2_bwd_reference(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int,
+                               wd: int, scale: float = 10.0):
+    """Plain PyTorch version of `attention_v2_bwd`, in float32, from the
+    JAX package's XLA backward (healthivert_tpu/ops/attention_pallas.py:
+    853-916) with the kernel's norm gate (nrm_raw > 1e-4). Returns (dfd,
+    dbd, db_full) in the input dtype."""
+    bs, _, _, c = fd.shape
+    num_l = hd * wd
+    f32 = torch.float32
+    probs, s, nrm_raw = probs.to(f32), s.to(f32), nrm_raw.to(f32)
+    nrm = torch.clamp(nrm_raw, min=1e-4)
+    g = mm.to(f32)[:, :, None]
+
+    # paste adjoints: dv = 4x4 stride-2 patches of dy / 4
+    raw = extract_patches(b_full.to(f32), 4, 2).reshape(bs, num_l, -1)
+    dv = extract_patches(dy.to(f32), 4, 2).reshape(bs, num_l, -1) / 4.0
+    dprobs = torch.einsum("blr,bpr->blp", raw, dv)
+    draw = torch.einsum("blp,bpr->blr", probs, dv)
+    db_full = _fold_overlap_add(draw.reshape(bs, hd, wd, 4, 4, c), 2 * hd, 2 * wd, 2, 4) * 4.0
+
+    # softmax and gate backward (the softmax runs over l, axis 1)
+    dq = dprobs * g
+    colsum = torch.sum(probs * dq, dim=1, keepdim=True)
+    ds = fuse_adjoint(probs * (dq - colsum) * g * scale, wd)
+
+    # norm backward, then the score products
+    ds0 = ds / nrm
+    dn = -torch.sum(ds * s, dim=2, keepdim=True) / nrm
+    dnrm2 = torch.where(nrm_raw > 1e-4, dn * 0.5 / torch.clamp(nrm_raw, min=1e-12), 0.0)
+    fpat = extract_patches(fd.to(f32), 3, 1).reshape(bs, num_l, -1)
+    wpat = extract_patches(bd.to(f32), 3, 1).reshape(bs, num_l, -1)
+    dfpat = torch.einsum("blp,blk->bpk", ds0, wpat)
+    dwpat = torch.einsum("blp,bpk->blk", ds0, fpat) + 2.0 * wpat * dnrm2
+    dfd = patches_adjoint(dfpat, hd, wd, c, 3)
+    dbd = patches_adjoint(dwpat, hd, wd, c, 3)
+    return dfd.to(fd.dtype), dbd.to(bd.dtype), db_full.to(b_full.dtype)
+
+
+def _check_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd):
+    _check(fd, bd, b_full, mm, hd, wd)
+    bs, c, num_l = fd.shape[0], fd.shape[-1], hd * wd
+    want = {
+        "dy": (dy, (bs, 2 * hd, 2 * wd, c), fd.dtype),
+        "probs": (probs, (bs, num_l, num_l), torch.float32),
+        "s": (s, (bs, num_l, num_l), torch.float32),
+        "nrm_raw": (nrm_raw, (bs, num_l, 1), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"attention_v2_bwd: {name} is {tuple(t.shape)} {t.dtype}, "
+                f"expected {shape} {dtype}"
+            )
+        if t.device != fd.device:
+            raise ValueError(f"attention_v2_bwd: {name} is on {t.device}, fd on {fd.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"attention_v2_bwd: {name} must be contiguous")
+
+
+def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int,
+                     scale: float = 10.0):
+    """Adjoint of `attention_v2` from its residuals.
+
+    fd, bd (B, hd, wd, C), b_full and the output cotangent dy (B, 2hd, 2wd,
+    C), all in one dtype (float32 or bfloat16); probs, s (B, L, L), nrm_raw
+    (B, L, 1) and mm (B, L), float32, as the forward returned them. Returns
+    (dfd, dbd, db_full) in the input dtype; the gate gets no gradient."""
+    if fd.device.type == "cpu":
+        return attention_v2_bwd_reference(fd, bd, b_full, dy, probs, s, nrm_raw, mm,
+                                          hd, wd, scale)
+    if fd.device.type != "cuda":
+        raise ValueError(f"attention_v2_bwd: no kernel for device {fd.device}")
+    _check_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd)
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    num_l = hd * wd
+    dev = fd.device
+    dfd, dbd, db_full = torch.empty_like(fd), torch.empty_like(bd), torch.empty_like(b_full)
+    grad_a = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
+    grad_b = torch.empty_like(grad_a)
+    dn2 = torch.empty((bs, num_l), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_v2_backward(
+            fd.data_ptr(), bd.data_ptr(), b_full.data_ptr(), dy.data_ptr(),
+            probs.data_ptr(), s.data_ptr(), nrm_raw.data_ptr(), mm.data_ptr(),
+            dfd.data_ptr(), dbd.data_ptr(), db_full.data_ptr(),
+            grad_a.data_ptr(), grad_b.data_ptr(), dn2.data_ptr(),
+            bs, hd, wd, c, float(scale), 1 if fd.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention_v2_bwd kernel launch failed: CUDA error {rc}")
+    attention_v2_bwd.launches += 1
+    return dfd, dbd, db_full
+
+
+attention_v2_bwd.launches = 0  # kernel launches in this process, counted above
+
+
+class AttentionV2Function(torch.autograd.Function):
+    """Differentiable `attention_v2`: the forward saves its residuals (s,
+    probs, nrm_raw) and the backward runs `attention_v2_bwd` on them. Both
+    directions take the kernel on a CUDA tensor and the plain version on a
+    CPU tensor. The gate mm gets no gradient.
+
+    apply(fd, bd, b_full, mm, hd, wd, scale) -> y"""
+
+    @staticmethod
+    def forward(ctx, fd, bd, b_full, mm, hd, wd, scale):
+        y, s, probs, nrm_raw = attention_v2(fd, bd, b_full, mm, hd, wd, scale,
+                                            emit_residuals=True)
+        ctx.save_for_backward(fd, bd, b_full, mm, s, probs, nrm_raw)
+        ctx.grid = (hd, wd, scale)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        fd, bd, b_full, mm, s, probs, nrm_raw = ctx.saved_tensors
+        hd, wd, scale = ctx.grid
+        dfd, dbd, db_full = attention_v2_bwd(
+            fd, bd, b_full, dy.contiguous(), probs, s, nrm_raw, mm, hd, wd, scale
+        )
+        return dfd, dbd, db_full, None, None, None, None

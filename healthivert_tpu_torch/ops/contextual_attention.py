@@ -83,6 +83,27 @@ def fuse_scores(s, wd):
     )
 
 
+def fuse_adjoint(g, wd):
+    """Transpose of `fuse_scores`: the two passes in the other order, each
+    being its own adjoint (it holds both +-1 shifts, and sigma- inverts
+    sigma+)."""
+    g = g + _perm(_perm(g, wd, 1, +1), wd, 2, +1) + _perm(_perm(g, wd, 1, -1), wd, 2, -1)
+    return _fuse_diag(g)
+
+
+def patches_adjoint(dpat, h, w, c, k):
+    """Adjoint of the stride-1 SAME `extract_patches` with odd k: overlap-add
+    of the k*k shifted planes of (B, h*w, k*k*c) patch gradients."""
+    b = dpat.shape[0]
+    d = dpat.reshape(b, h, w, k, k, c)
+    pad = (k - 1) // 2
+    out = dpat.new_zeros((b, h + 2 * pad, w + 2 * pad, c))
+    for dy in range(k):
+        for dx in range(k):
+            out[:, dy : dy + h, dx : dx + w, :] += d[:, :, :, dy, dx, :]
+    return out[:, pad : pad + h, pad : pad + w, :]
+
+
 def _fold_overlap_add(vals, h, w, s, k):
     """Overlap-add of (B, hd, wd, k, k, C) patch values on a stride-s grid
     with padding 1 (conv_transpose2d(stride=s, padding=1)), divided by 4."""
@@ -103,8 +124,11 @@ def contextual_attention(f, b, mask, softmax_scale: float = 10.0,
     the hole, downscaled here by 1/8 to the H/2 x W/2 matching grid.
 
     compute_offsets: also return the argmax patch coordinates per query,
-    taken from the attention's `probs` residual."""
-    from .attention_cuda import attention_v2
+    taken from the attention's `probs` residual; forward only, as in the
+    JAX package. Otherwise, when autograd records (grad enabled and f or b
+    requiring grad), the attention runs through `AttentionV2Function`, whose
+    backward is the backward kernel; under no_grad it is a plain call."""
+    from .attention_cuda import AttentionV2Function, attention_v2
 
     bs, h, w, _ = f.shape
     hd, wd = h // 2, w // 2
@@ -116,16 +140,16 @@ def contextual_attention(f, b, mask, softmax_scale: float = 10.0,
     mpat = extract_patches(md, 3, 1)
     mm = (mpat.mean(dim=(2, 3, 4)) == 0.0).to(torch.float32)  # (B, L)
 
-    out = attention_v2(
-        fd.contiguous(), bd.contiguous(), b.contiguous(), mm, hd, wd,
-        softmax_scale, emit_residuals=compute_offsets,
-    )
+    args = (fd.contiguous(), bd.contiguous(), b.contiguous(), mm, hd, wd, softmax_scale)
     if compute_offsets:
-        y, _s, probs, _n = out
+        y, _s, probs, _n = attention_v2(*args, emit_residuals=True)
         off = torch.argmax(probs, dim=1)  # (B, P)
         offsets = torch.stack([off // wd, off % wd], dim=-1)
         offsets = offsets.reshape(bs, hd, wd, 2).to(torch.int32)
     else:
-        y = out
+        if torch.is_grad_enabled() and (f.requires_grad or b.requires_grad):
+            y = AttentionV2Function.apply(*args)
+        else:
+            y = attention_v2(*args)
         offsets = torch.zeros((bs, hd, wd, 2), dtype=torch.int32, device=f.device)
     return AttentionOut(y.to(f.dtype), offsets)

@@ -1,8 +1,10 @@
-"""SHRM paste-back and the discriminator's centre-column mask.
+"""SHRM paste-back, the band crop of the local discriminator's input and the
+centre-column mask.
 
 Counterpart of healthivert_tpu/ops/geometry.py (`shrm_paste` and
-`shrm_paste_batch` :68-106, `local_crop_mask` :138). Row ranges are index
-masks and gathers, so the batched form runs without a per-sample loop.
+`shrm_paste_batch` :68-106, `band_crop`/`band_crop_batch` :109-135,
+`local_crop_mask` :138). Row ranges are index masks and gathers, so the
+batched forms run without a per-sample loop or a host sync.
 """
 
 from __future__ import annotations
@@ -51,6 +53,35 @@ def shrm_paste(fake_raw, real, pred_h, real_height, x1, x2):
         fake_raw[None], real[None], t(pred_h).float(), t(real_height),
         t(x1), t(x2),
     )[0]
+
+
+def band_crop_batch(img: torch.Tensor, mask: torch.Tensor, rows: int = 48,
+                    cols: int = 128) -> torch.Tensor:
+    """Static-shape (rows, cols) crop of each sample of `img` that holds the
+    whole support of mask * img * local_crop_mask: the local
+    discriminator's input. The row start follows the first row where the
+    sample's mask is non-zero (less a margin of 3, clamped to the image; 0
+    for an empty mask), the columns are the centred window.
+
+    img, mask: (B, H, W, C). The rows are gathered by an index tensor on the
+    device, so the crop is differentiable in img and needs no host sync."""
+    b, h, w = img.shape[0], img.shape[1], img.shape[2]
+    row_any = (mask > 0).flatten(2).any(dim=2)  # (B, H)
+    r = torch.arange(h, device=img.device)
+    first = torch.where(row_any, r, h).amin(dim=1)
+    first = torch.where(first == h, 0, first)  # an empty mask crops from row 0
+    r0 = torch.clamp(first - 3, 0, h - rows)
+    idx = r0[:, None] + torch.arange(rows, device=img.device)[None, :]  # (B, rows)
+    c0 = (w - cols) // 2
+    band = img[:, :, c0 : c0 + cols]
+    gather = idx.reshape(b, rows, 1, 1).expand(b, rows, cols, img.shape[3])
+    return torch.gather(band, 1, gather)
+
+
+def band_crop(img: torch.Tensor, mask: torch.Tensor, rows: int = 48,
+              cols: int = 128) -> torch.Tensor:
+    """One slice of `band_crop_batch`: img, mask (H, W, C)."""
+    return band_crop_batch(img[None], mask[None], rows, cols)[0]
 
 
 def local_crop_mask(height_rows: int, width: int, half_width: int = 35,

@@ -1,7 +1,8 @@
-"""Image ops of the serving path: nearest resize and Sobel edge magnitude.
+"""Image ops: nearest resize, Sobel edge magnitude and the soft Dice of the
+training losses.
 
 Counterpart of healthivert_tpu/ops/image.py (`resize_nearest` :158,
-`sobel_edges` :33). Tensors are NHWC, as there.
+`sobel_edges` :33, `dice_coeff` :52). Tensors are NHWC, as there.
 """
 
 from __future__ import annotations
@@ -50,3 +51,13 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     ih = torch.arange(out_h, device=x.device) * h // out_h
     iw = torch.arange(out_w, device=x.device) * w // out_w
     return x.index_select(1, ih).index_select(2, iw)
+
+
+def dice_coeff(pred: torch.Tensor, gt: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Soft Dice, averaged over the batch: (2 tp + eps) / (sum(pred) +
+    sum(gt) + eps) per sample (the reference's diceCoeff(activation='none'))."""
+    n = pred.shape[0]
+    p = pred.reshape(n, -1)
+    g = gt.reshape(n, -1)
+    tp = torch.sum(g * p, dim=1)
+    return torch.mean((2.0 * tp + eps) / (p.sum(dim=1) + g.sum(dim=1) + eps))

@@ -1,4 +1,5 @@
-"""Carry generator weights from the JAX package's flax trees to this port.
+"""Carry generator and discriminator weights from the JAX package's flax
+trees to this port.
 
 The flax generator stores {"params", "sn"} trees: conv kernels HWIO under
 ``<stage>/<block>/conv/kernel`` with ``bias`` beside them, Dense kernels
@@ -6,6 +7,14 @@ The flax generator stores {"params", "sn"} trees: conv kernels HWIO under
 under ``sn/<stage>/<block>/conv/u``. This is the inverse of
 healthivert_tpu/utils/pth.py `map_generator_state` (:234): conv kernels go
 HWIO -> OIHW, Dense kernels are transposed, u is carried over.
+
+The flax discriminators store {"params", "batch_stats"} trees: conv kernels
+HWIO under ``conv<n>/kernel`` (``conv_out``, ``conv0``, ...) with ``bias``
+beside them where there is one, BatchNorm ``norm<n>/scale`` and ``bias``,
+and the running statistics ``batch_stats/norm<n>/mean`` and ``var``. They
+become the state dict of `models.discriminator`: kernels OIHW, scale and
+bias the norm's weight and bias, mean and var its running_mean and
+running_var.
 
 The trees arrive as nested dicts of numpy arrays, or as a flat ``.npz``
 whose keys are the tree paths joined by "/" (``params/coarse_generator/
@@ -64,6 +73,24 @@ def flax_to_state_dict(params: Mapping, sn: Mapping) -> Dict[str, torch.Tensor]:
         if name != "u":
             raise ValueError(f"unexpected spectral-norm variable {path}")
         sd[".".join(mod + ["u"])] = torch.from_numpy(np.asarray(leaf, np.float32).copy())
+    return sd
+
+
+def flax_discriminator_to_state_dict(params: Mapping,
+                                     batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """Flax discriminator trees -> state dict of `models.discriminator`'s
+    NLayerDiscriminator or PixelDiscriminator."""
+    sd: Dict[str, torch.Tensor] = {}
+    names = {"kernel": "weight", "bias": "bias", "scale": "weight",
+             "mean": "running_mean", "var": "running_var"}
+    for path, leaf in [*flatten_tree(params).items(), *flatten_tree(batch_stats or {}).items()]:
+        *mod, name = path.split("/")
+        a = np.asarray(leaf, np.float32)
+        if name not in names or (name == "kernel") != (a.ndim == 4):
+            raise ValueError(f"unexpected discriminator variable {path} {a.shape}")
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1)
+        sd[".".join(mod + [names[name]])] = torch.from_numpy(np.array(a, order="C"))
     return sd
 
 

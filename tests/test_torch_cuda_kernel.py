@@ -1,4 +1,5 @@
-"""The CUDA attention kernel against its plain PyTorch version, on the card.
+"""The CUDA attention kernels, forward and backward, against their plain
+PyTorch versions, on the card.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -13,6 +14,13 @@ implementations: atol 2e-5 on s (seen 4.5e-8), atol 1e-4 on probs (seen
 the input dtype: float32 gets atol 3e-4 (seen 3.7e-5); bf16 gets
 1e-3 + 1.6e-2 * |y|, two bf16 ulps, since both versions round float32
 values that may straddle a rounding boundary (seen: one ulp).
+
+Backward (dfd, dbd, db_full from the forward kernel's own residuals and a
+random cotangent): both versions compute in float32 and differ by the order
+of sums, so float32 gets |k - r| <= 1e-4 * max|r| (dfd reaches ~2e2 while
+entries near zero come from cancelling sums; seen 3.3e-6 * max|r| on an
+H100). bf16 outputs get two bf16 ulps of |r| plus 1e-4 * max|r| for
+entries whose float32 values cancelled to near zero (seen: one ulp).
 """
 
 import numpy as np
@@ -20,7 +28,10 @@ import pytest
 import torch
 
 from healthivert_tpu_torch.ops.attention_cuda import (
+    AttentionV2Function,
     attention_v2,
+    attention_v2_bwd,
+    attention_v2_bwd_reference,
     attention_v2_reference,
 )
 
@@ -95,3 +106,78 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         attention_v2(fd.transpose(1, 2), bd, b_full, mm, 8, 8)
     with pytest.raises(ValueError):
         attention_v2(fd, bd, b_full[:, :8], mm, 8, 8)
+
+
+def bwd_within(got, want, dtype):
+    """The backward's tolerance (see the module docstring)."""
+    got, want = got.float(), want.float()
+    floor = 1e-4 * float(want.abs().max())
+    if dtype == torch.float32:
+        return float((got - want).abs().max()) <= floor
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want.abs()).exponent - 8)
+    return bool(((got - want).abs() <= 2 * ulp + floor).all())
+
+
+def backward_case(b, hd, wd, c, band, dtype, device, seed=0):
+    """Inputs, the forward kernel's residuals and a random cotangent."""
+    fd, bd, b_full, mm = make_inputs(b, hd, wd, c, band, dtype, device, seed)
+    _, s, probs, nrm = attention_v2(fd, bd, b_full, mm, hd, wd, 10.0, emit_residuals=True)
+    rng = np.random.default_rng(seed + 1)
+    dy = torch.from_numpy(rng.standard_normal((b, 2 * hd, 2 * wd, c)).astype(np.float32))
+    return fd, bd, b_full, dy.to(device=device, dtype=dtype), probs, s, nrm, mm
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_backward_kernel_matches_plain(cuda_device, shape, band, dtype):
+    b, hd, wd, c = shape
+    args = backward_case(b, hd, wd, c, band, dtype, cuda_device)
+    got = attention_v2_bwd(*args, hd, wd, 10.0)
+    torch.cuda.synchronize()
+    want = attention_v2_bwd_reference(*args, hd, wd, 10.0)
+    for name, g, w, like in zip(("dfd", "dbd", "db_full"), got, want, args[:3]):
+        assert g.dtype == dtype and g.shape == like.shape, name
+        assert bwd_within(g, w, dtype), (name, float((g.float() - w.float()).abs().max()),
+                                         float(w.float().abs().max()))
+    assert float(args[4].amax(dim=1).min()) < 0.9  # soft attention
+
+
+def test_function_launches_one_kernel_each_way(cuda_device):
+    fd, bd, b_full, mm = make_inputs(2, 8, 8, 4, "bottom", torch.float32, cuda_device)
+    ins = [t.clone().requires_grad_(True) for t in (fd, bd, b_full)]
+    before = (attention_v2.launches, attention_v2_bwd.launches)
+    y = AttentionV2Function.apply(*ins, mm, 8, 8, 10.0)
+    (y * y).sum().backward()
+    torch.cuda.synchronize()
+    assert (attention_v2.launches, attention_v2_bwd.launches) == (before[0] + 1, before[1] + 1)
+    cpu = [t.detach().cpu().requires_grad_(True) for t in ins]
+    y_cpu = AttentionV2Function.apply(*cpu, mm.cpu(), 8, 8, 10.0)
+    (y_cpu * y_cpu).sum().backward()
+    assert (attention_v2.launches, attention_v2_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(ins, cpu):
+        torch.testing.assert_close(g.grad.cpu(), w.grad, rtol=1e-4, atol=1e-4)
+
+
+def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    args = list(backward_case(1, 8, 8, 4, "middle", torch.float32, cuda_device))
+
+    def call(**repl):
+        a = list(args)
+        for i, v in repl.items():
+            a[int(i[1:])] = v
+        return attention_v2_bwd(*a, 8, 8)
+
+    fd, dy, probs, nrm = args[0], args[3], args[4], args[6]
+    with pytest.raises(TypeError):
+        call(a0=fd.half(), a1=args[1].half(), a2=args[2].half(), a3=dy.half())
+    with pytest.raises(ValueError):  # dy in another dtype than the inputs
+        call(a3=dy.to(torch.bfloat16))
+    with pytest.raises(ValueError):  # residual of the wrong shape
+        call(a4=probs[:, :32])
+    with pytest.raises(ValueError):  # residual in bf16
+        call(a6=nrm.to(torch.bfloat16))
+    with pytest.raises(ValueError):  # residual on another device
+        call(a5=args[5].cpu())
+    with pytest.raises(ValueError):  # non-contiguous cotangent
+        call(a3=dy.transpose(1, 2).contiguous().transpose(1, 2))

@@ -82,20 +82,30 @@ def test_spectral_norm_matches_flax_formula(rng):
     np.testing.assert_allclose(got.numpy(), (k / sigma).transpose(3, 2, 0, 1), rtol=2e-6)
 
 
+@torch.no_grad()
 def test_sn_cache_follows_weight_updates(rng):
+    """Without autograd the normalized kernel is cached per weight version."""
     block = Conv2dBlock(2, 3, 3, 1, 1)
-    with torch.no_grad():
-        block.conv.weight.copy_(torch.randn(3, 2, 3, 3))
+    block.conv.weight.copy_(torch.randn(3, 2, 3, 3))
     first = block.conv.normalized_weight().clone()
-    with torch.no_grad():
-        block.conv.weight.mul_(2.0)
+    assert block.conv.normalized_weight() is block.conv.normalized_weight()
+    block.conv.weight.mul_(2.0)
     second = block.conv.normalized_weight()
     # spectral normalisation is scale invariant, so the value stays ...
     torch.testing.assert_close(first, second, rtol=1e-5, atol=1e-6)
     # ... but it was recomputed from the new weight
-    with torch.no_grad():
-        block.conv.weight[0].zero_()
+    block.conv.weight[0].zero_()
     assert float(block.conv.normalized_weight()[0].abs().sum()) == 0.0
+
+
+def test_sn_under_autograd_is_live_and_uncached():
+    block = Conv2dBlock(2, 3, 3, 1, 1)
+    with torch.no_grad():
+        block.conv.weight.copy_(torch.randn(3, 2, 3, 3))
+        cached = block.conv.normalized_weight()
+    live = block.conv.normalized_weight()
+    assert live.requires_grad and live is not block.conv.normalized_weight()
+    torch.testing.assert_close(live.detach(), cached)
 
 
 @pytest.mark.parametrize(
