@@ -8,32 +8,47 @@ JSON line:
 
   1. device     card name and count, nvidia-smi name and power limit; TF32
                 is switched off for the float32 phases
-  2. build      one nvcc call for sm_90a over csrc/attention_v2.cu and
-                csrc/attention_v2_bwd.cu, with the -Xptxas -v register and
-                shared-memory report of each kernel
+  2. build      one nvcc process per source for sm_90a, all started
+                together (csrc/attention_v2.cu, attention_v2_bwd.cu,
+                attention_v1.cu, attention_v2_ablate.cu), linked into one
+                library, with the -Xptxas -v register and shared-memory
+                report of each kernel; then, for comparison, the seconds of
+                one nvcc call over the same files (its library thrown away)
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
                 f32 and bf16, hole band in the middle, bottom and top; and
                 one odd case (16 x 16, C=4): y, s, probs, nrm_raw
   4. kernel_bwd attention_v2_bwd kernel vs plain version on the forward
                 kernel's residuals and a random cotangent, at the same
                 cases plus 6 x 10, C=20: dfd, dbd, db_full
-  5. fwd_f32    generator_forward on the card (kernel) against the port's
+  5. kernel_v1  attention_scores_paste (v1) kernel vs plain version on the
+                patch tensors of the same cases at production shapes (K =
+                576, RC = 1024), plus 6 x 10, C=20 (K = 180, RC = 320)
+  6. fwd_f32    generator_forward on the card (kernel) against the port's
                 CPU path (plain version), batch 2, float32
-  6. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
+  7. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
                 256), batch 2, float32, on the card against the port's CPU
                 path: every loss and every G and D gradient tensor
-  7. fwd_bf16   generator_forward at the 3D synthesis batch of 64, bf16:
+  8. fwd_bf16   generator_forward at the 3D synthesis batch of 64, bf16:
                 one kernel launch per forward, finite outputs, slices/s
-  8. synth3d    the serving path: synthesize_volumes on a 256 x 256 x 64
+  9. synth3d    the serving path: synthesize_volumes on a 256 x 256 x 64
                 synthetic spine, vertebrae 19-21, bf16, batch 64; kernel
                 launches must equal the synthesis's forward dispatches
-  9. train_bf16 the training path: run_training with the shipped recipe
+ 10. train_bf16 the training path: run_training with the shipped recipe
                 (checkpoints/pretrained_synthetic/train_opt.txt: batch 32,
-                bf16), 2 warm-up and 20 timed steps; one forward and one
-                backward kernel launch per step, finite losses, every
-                parameter tensor moved
- 10. timing     each kernel, its plain version and its bound, bf16, CUDA
-                events: the forward at B=64, the backward at B=32
+                bf16), 2 warm-up and 20 timed steps, each timed; one
+                forward and one backward kernel launch per step, finite
+                losses, every parameter tensor moved
+ 11. ablate     the forward's stage ablation: every mode in both layouts,
+                kernel vs plain on soft attention at (2, 32, 32, 64) f32,
+                (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16, and on the
+                entry point's own inputs at its batch; then the entry point
+                (experiments/attn_ablate.main) at the 3D driver's batch of
+                64, bf16, its four entry functions and the v1 kernel each
+                launched at least once, `full`'s variants equal to it
+ 12. timing     each kernel, its plain version and its bound, bf16, CUDA
+                events: the forward at B=64, the backward at B=32, v1 at
+                B=64; the ablation's entry functions in mode full at B=64
+                (kernel ms from the ablation's own timing)
 
 then the `kernels` line, and last the device line. Any failed check raises
 and the script exits non-zero without the last line. Run from the root of
@@ -54,14 +69,31 @@ from healthivert_tpu_torch.data.synthetic import SyntheticDataset, make_spine_vo
 from healthivert_tpu_torch.engine import infer3d
 from healthivert_tpu_torch.engine.checkpoint import PRETRAINED_NPZ, load_generator
 from healthivert_tpu_torch.engine.train_loop import run_training
+from healthivert_tpu_torch.experiments import attn_ablate
+from healthivert_tpu_torch.experiments.attn_ablate import (
+    LAYOUTS,
+    MODES,
+    ablate_layout_reference,
+    ablate_reference,
+    ablate_within,
+    attention_v2_ablate,
+    run,
+    run_auto,
+    run_fold,
+    run_padded,
+    to_phases,
+)
 from healthivert_tpu_torch.models import pix2pix
 from healthivert_tpu_torch.models.pix2pix import Pix2PixConfig, generator_forward
 from healthivert_tpu_torch.ops import attention_cuda
 from healthivert_tpu_torch.ops.attention_cuda import (
+    attention_scores_paste,
+    attention_scores_paste_reference,
     attention_v2,
     attention_v2_bwd,
     attention_v2_bwd_reference,
     attention_v2_reference,
+    v1_patches,
 )
 
 RECIPE = Path(__file__).resolve().parent / "checkpoints" / "pretrained_synthetic" / "train_opt.txt"
@@ -92,6 +124,10 @@ BWD_TOL = 1e-4
 # 128 output positions of binary-image patches) cancels to far below its
 # terms: seen 1.5e-3 there, at most 2.3e-4 in G, D1 and D3.
 LOSS_RTOL, GRAD_TOL = 1e-4, 3e-3
+# ablation, each mode vs its plain version: attn_ablate.ablate_within. The
+# candidates against full, in the entry point's bf16 run: at most two bf16
+# ulps of the largest output (the outputs round to bf16).
+CANDIDATE_REL = 1.6e-2
 
 
 def check(cond, msg):
@@ -143,11 +179,27 @@ def phase_device():
          tf32="off for the float32 phases (cudnn.allow_tf32 and matmul.allow_tf32 False)")
 
 
+def one_call_build_seconds():
+    """Seconds of one nvcc call over the library's .cu files with its flags,
+    into a library that is thrown away: what the per-source build is set
+    against. It runs after that build, so it finds the toolkit's files in
+    the page cache."""
+    out = attention_cuda.BUILD_DIR / "one_call.tmp.so"
+    cus = [str(attention_cuda.CSRC / n) for n in attention_cuda.SOURCES if n.endswith(".cu")]
+    t0 = time.perf_counter()
+    subprocess.run([attention_cuda._nvcc(), *attention_cuda.NVCC_FLAGS, "-shared", "-o", str(out),
+                    *cus], capture_output=True, check=True, timeout=900)
+    seconds = time.perf_counter() - t0
+    out.unlink()
+    return seconds
+
+
 def phase_build():
     _, info = attention_cuda.load_library(force_build=True)
     report = [ln.strip() for ln in info.ptxas.splitlines()
               if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
-    emit("build", seconds=round(info.seconds, 3), flags=list(attention_cuda.NVCC_FLAGS),
+    emit("build", seconds=info.seconds, one_call_seconds=one_call_build_seconds(),
+         flags=list(attention_cuda.NVCC_FLAGS),
          sources=[n for n in attention_cuda.SOURCES if n.endswith(".cu")], ptxas=report)
 
 
@@ -224,6 +276,89 @@ def phase_kernel_bwd():
         worst[name] = errs
     emit("kernel_bwd", cases=worst, tolerance=f"f32: {BWD_TOL} * max|ref|; bf16: 2 ulps + "
          f"{BWD_TOL} * max|ref|")
+
+
+def phase_kernel_v1():
+    cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
+             for band in ("middle", "bottom", "top")]
+    cases += [(1, 6, 10, 20, "bottom", torch.float32), (1, 6, 10, 20, "top", torch.bfloat16)]
+    worst = {}
+    for b, hd, wd, c, band, dt in cases:
+        fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dt)
+        patches = v1_patches(fd, bd, b_full)
+        vals = attention_scores_paste(*patches, mm, hd, wd, 10.0)
+        torch.cuda.synchronize()
+        want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
+        _, _, p_r, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
+        name = f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}"
+        check(vals.dtype == dt and tuple(vals.shape) == (b, hd * wd, 16 * c),
+              f"{name}: vals {vals.dtype} {tuple(vals.shape)}")
+        worst[name] = max_err(vals, want)
+        check(y_within(vals, want, dt), f"{name}: vals err {worst[name]}")
+        check(float(p_r.amax(dim=1).min()) < 0.9, f"{name}: attention is one-hot")
+    emit("kernel_v1", cases=worst, tolerances={
+        "f32_atol_rtol": TOL["y"][torch.float32], "bf16_atol_rtol": TOL["y"][torch.bfloat16]})
+
+
+ABLATE_COUNTED = (attention_scores_paste, run, run_padded, run_auto, run_fold)
+
+
+def ablate_cases(batch):
+    """(name, hd, wd, inputs, soft) of phase ablate's comparisons: soft
+    attention (attention_inputs) at three shapes, one of them the entry
+    point's, and the entry point's own inputs (near one-hot attention)."""
+    for b, hd, wd, c, band, dt in ((2, 32, 32, 64, "bottom", torch.float32),
+                                   (batch, 32, 32, 64, "top", torch.bfloat16),
+                                   (1, 6, 10, 20, "top", torch.bfloat16)):
+        yield (f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}", hd, wd,
+               attention_inputs(b, hd, wd, c, band, dt), True)
+    g, c, dt = attn_ablate.GRID, attn_ablate.CHANNELS, attn_ablate.DTYPE
+    yield (f"main_B{batch}_{g}x{g}_C{c}_{str(dt).split('.')[-1]}", g, g,
+           attn_ablate.make_inputs(batch, g, g, c, dt, torch.device("cuda"), attn_ablate.SEED),
+           False)
+
+
+def phase_ablate(batch=64):
+    """Every mode in both layouts against its plain version, then the
+    ablation's entry point with the launch counts set to 0 just before it
+    and read just after. Returns its result and those counts."""
+    worst = {}
+    for case, hd, wd, (fd, bd, b_full, mm), soft in ablate_cases(batch):
+        _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
+        pmax, rmax = float(probs.max()), float(b_full.float().abs().max())
+        if soft:
+            check(float(probs.amax(dim=1).min()) < 0.9, f"ablate {case}: attention is one-hot")
+        del probs
+        for layout in LAYOUTS:
+            b_in = b_full if layout == "natural" else to_phases(b_full, hd, wd)
+            for mode in MODES:
+                got = attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
+                torch.cuda.synchronize()
+                want = ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
+                name = f"{case}_{layout}_{mode}"
+                check(got.dtype == fd.dtype and got.shape == b_in.shape,
+                      f"{name}: {got.dtype} {tuple(got.shape)}")
+                ok, worst[name] = ablate_within(got, want, mode, pmax, rmax)
+                check(ok, f"{name}: err {worst[name]}")
+    torch.cuda.synchronize()
+    for fn in ABLATE_COUNTED:
+        fn.launches = 0
+    result = attn_ablate.main([str(batch)])
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in ABLATE_COUNTED}
+    check(all(n > 0 for n in launches.values()), f"ablate: a kernel was not launched: {launches}")
+    ms, errs = result["ms"], result["rel_err_vs_full"]
+    check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"ablate: times {ms}")
+    check(errs["auto-full"] == 0.0 and errs["fold-full"] == 0.0, f"ablate: layouts differ {errs}")
+    for mode in ("paste_bf16", "fold_norm"):
+        check(errs[mode] <= CANDIDATE_REL, f"ablate: {mode} rel err {errs[mode]}")
+    emit("ablate", kernel_vs_plain_max_abs_err=worst, batch=batch, dtype=result["dtype"],
+         launches=launches, ms=ms, saves_ms={m: ms["full"] - ms[m] for m in MODES},
+         rel_err_vs_full=errs, tolerances={"kernel_vs_plain": "y's (f32 atol, bf16 atol "
+         f"and rtol {attn_ablate.Y_TOL[torch.float32][0]}, {attn_ablate.Y_TOL[torch.bfloat16]}) "
+         f"+ {attn_ablate.ABLATE_REL} * max|ref|, + 2 bf16 straddles for paste_bf16",
+         "candidates_vs_full": CANDIDATE_REL})
+    return result, launches
 
 
 def to_device(batch, dev):
@@ -376,13 +511,12 @@ def phase_train_bf16(warmup=2, timed=20):
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
-    per_step, marks = [], {}
+    per_step, marks = [], []
 
     def on_step(step, losses):
         per_step.append((attention_v2.launches, attention_v2_bwd.launches))
-        if step in (warmup, warmup + timed):
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
+        torch.cuda.synchronize()  # the step's pageable batch copy waits for the card anyway
+        marks.append(time.perf_counter())
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -400,11 +534,14 @@ def phase_train_bf16(warmup=2, timed=20):
         a, b = getattr(start, net), getattr(state, net)
         for (k, p0), p1 in zip(a.named_parameters(), b.parameters()):
             check(not torch.equal(p0, p1), f"train_bf16: {net}.{k} did not move")
-    seconds = marks[warmup + timed] - marks[warmup]
+    seconds = marks[-1] - marks[warmup - 1]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks[warmup - 1:], marks[warmup:])]
     emit("train_bf16", recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
          batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
          timed_steps=timed, ms_per_step=seconds / timed * 1e3,
-         slices_per_s=opt.batch_size * timed / seconds, max_memory_allocated_bytes=peak,
+         slices_per_s=opt.batch_size * timed / seconds, step_ms=step_ms,
+         step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
+         max_memory_allocated_bytes=peak,
          fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
     return bwd
 
@@ -495,6 +632,83 @@ def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
 
 
+def v1_bound_ms(b, num_l, k, rc, dtype):
+    """Least time for one v1 call: the score product (K deep) and the paste
+    (L deep) at the peak rate of the input type; bytes: fpat, wnorm, raw
+    and vals in the input type, mm in float32, each moved once."""
+    flops = b * 2 * num_l * num_l * (k + rc)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * ((2 * num_l * k + 2 * num_l * rc) * esize + num_l * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=1.0)
+    patches = v1_patches(fd, bd, b_full)
+    kernel = lambda: attention_scores_paste(*patches, mm, hd, wd)
+    plain = lambda: attention_scores_paste_reference(*patches, mm, hd, wd)
+    got, want = kernel(), plain()
+    err = max_err(got, want)
+    check(y_within(got, want, dtype), f"timing shape: v1 vals err {err}")
+    for _ in range(3):
+        kernel()
+        plain()
+    torch.cuda.synchronize()
+    # plain, kernel, kernel, plain
+    p1 = time_events(plain, 5)
+    k1 = time_events(kernel, 20)
+    k2 = time_events(kernel, 20)
+    p2 = time_events(plain, 5)
+    bms, bound_by, flops, nbytes = v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype)
+    ms, plain_ms = min(k1, k2), min(p1, p2)
+    emit("timing", kernel="attention_scores_paste", shape=[b, hd * wd, 9 * c, 16 * c],
+         dtype=str(dtype), kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms,
+         bound_by=bound_by, flops=flops, bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+
+
+def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    """The ablation's entry functions in mode full on the entry point's own
+    inputs: each against its plain version (error, and the plain version's
+    time), beside the kernel time the entry point measured."""
+    fd, bd, b_full, mm = attn_ablate.make_inputs(b, hd, wd, c, dtype, torch.device("cuda"))
+    bph = to_phases(b_full, hd, wd)
+    plain = {
+        "natural": lambda: ablate_reference(fd, bd, b_full, mm, hd, wd),
+        "phases": lambda: ablate_layout_reference(fd, bd, bph, mm, hd, wd, layout="phases"),
+    }
+    calls = {"run": (lambda: run(fd, bd, b_full, mm, hd, wd), "natural", "full"),
+             "run_padded": (lambda: run_padded(fd, bd, bph, mm, hd, wd), "phases", "padded-full"),
+             "run_auto": (lambda: run_auto(fd, bd, b_full, mm, hd, wd), "natural", "auto-full"),
+             "run_fold": (lambda: run_fold(fd, bd, b_full, mm, hd, wd), "natural", "fold-full")}
+    with torch.no_grad():
+        want = {layout: fn() for layout, fn in plain.items()}
+        errs = {}
+        for name, (fn, layout, _) in calls.items():
+            got = fn()
+            errs[name] = max_err(got, want[layout])
+            check(y_within(got, want[layout], dtype), f"timing shape: {name} err {errs[name]}")
+        torch.cuda.synchronize()
+        # plain, plain (each layout), then again
+        first = {layout: time_events(fn, 3) for layout, fn in plain.items()}
+        second = {layout: time_events(fn, 3) for layout, fn in plain.items()}
+    bms, bound_by, flops, nbytes = bound_ms(b, hd, wd, c, dtype)
+    rows = {}
+    for name, (_, layout, key) in calls.items():
+        plain_ms = min(first[layout], second[layout])
+        rows[name] = dict(ms=result["ms"][key], plain_ms=plain_ms, bound_ms=bms,
+                          bound_by=bound_by, max_abs_err=errs[name])
+        emit("timing", kernel=f"attn_ablate.{name}", mode="full", shape=[b, hd, wd, c],
+             dtype=str(dtype), kernel_ms=result["ms"][key], plain_ms=[first[layout], second[layout]],
+             bound_ms=bms, bound_by=bound_by, flops=flops, bytes=nbytes,
+             roofline_share=bms / result["ms"][key], max_abs_err=errs[name])
+    return rows
+
+
+ABLATE_REPLACES = {"run": 247, "run_padded": 289, "run_auto": 466, "run_fold": 657}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -504,6 +718,7 @@ def main():
     phase_build()
     phase_kernel()
     phase_kernel_bwd()
+    phase_kernel_v1()
     phase_fwd_f32()
     phase_grad_f32()
     cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="bfloat16")
@@ -512,8 +727,19 @@ def main():
     launches = phase_synth3d(gen, cfg)
     del gen
     bwd_launches = phase_train_bf16()
+    ablation, ablate_launches = phase_ablate()
     t = phase_timing()
     tb = phase_timing_bwd()
+    t1 = phase_timing_v1()
+    ta = phase_timing_ablate(ablation)
+    rows = [dict(name="attention_scores_paste", source="healthivert_tpu_torch/csrc/attention_v1.cu",
+                 replaces="healthivert_tpu/ops/attention_pallas.py:199",
+                 launches=ablate_launches["attention_scores_paste"], **t1)]
+    rows += [dict(name=f"attn_ablate.{name}",
+                  source="healthivert_tpu_torch/csrc/attention_v2_ablate.cu",
+                  replaces=f"experiments/attn_ablate.py:{line}",
+                  launches=ablate_launches[name], **ta[name])
+             for name, line in ABLATE_REPLACES.items()]
     print(json.dumps({"kernels": [{
         "name": "attention_v2", "route": "cuda",
         "source": "healthivert_tpu_torch/csrc/attention_v2.cu",
@@ -528,7 +754,12 @@ def main():
         "launches": bwd_launches, "max_abs_err": tb["max_abs_err"], "ms": tb["ms"],
         "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
         "library_ms": None,
-    }]}), flush=True)
+    }] + [{
+        "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None,
+    } for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

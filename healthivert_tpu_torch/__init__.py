@@ -5,11 +5,13 @@ The JAX package `healthivert_tpu` stays the reference; this package keeps
 its layout so that each module has a counterpart there:
 
 ops      nearest resize, Sobel edges, SHRM paste-back, contextual attention,
-         and the hand-written CUDA kernel for the attention forward
+         and the wrappers of the hand-written CUDA attention kernels
+         (forward, backward, v1 on patch tensors)
 models   spectral-norm conv blocks, the two-stage generator, generator_forward
 data     host-side (numpy) slice sampling and synthetic spine volumes
 engine   generator loading and the three-pass 3D synthesis
 utils    flax-tree to state-dict conversion, device selection
+experiments  the attention forward's stage ablation (run on the card)
 
 Public functions take and return NHWC tensors, as the JAX package does.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on a

@@ -49,7 +49,7 @@ void launch_all(const void* fd, const void* bd, const void* b_full, const float*
   score_kernel<T><<<score_grid, GEMM_THREADS, 0, stream>>>(
       static_cast<const T*>(fd), static_cast<const T*>(bd), nrm_raw, s, hd, wd, C);
   const dim3 sm_grid((L + SM_COLS - 1) / SM_COLS, B);
-  fuse_softmax_kernel<<<sm_grid, dim3(SM_COLS, SM_ROWS), 0, stream>>>(
+  fuse_softmax_kernel<kFull><<<sm_grid, dim3(SM_COLS, SM_ROWS), 0, stream>>>(
       s, mm, probs, hd, wd, scale);
   const dim3 paste_grid((C + TN - 1) / TN, 4 * ((L + TM - 1) / TM), B);
   paste_kernel<T><<<paste_grid, GEMM_THREADS, 0, stream>>>(

@@ -10,6 +10,24 @@
 
 namespace hv_attn {
 
+// Variants of the softmax (3) and paste (4) stages, chosen at compile time.
+// kFull is the forward's own; the others serve the stage ablation
+// (attention_v2_ablate.cu) and put no branch into the forward's kernels.
+enum StageMode : int {
+  kFull = 0,   // fused scores, gated softmax, probs = e / sum * g
+  kNoFuse,     // the softmax of the unfused scores
+  kNoSoftmax,  // probs = the fused scores as they stand: no exp, 1/sum or gate
+  kPasteBf16,  // probs also written in bf16; the paste reads those and
+               // rounds b_full to bf16, summing in float
+  kFoldNorm,   // probs = e * g and col_inv = 1 / sum per column p; the paste
+               // scales each probs value by its column's col_inv as it loads it
+};
+
+// Layout of the paste's b_full operand and its output: kNatural is
+// (B, 2hd, 2wd, C); kPhases is (B, 2, 2, hd, wd, C), [b, r, t, i, j] holding
+// pixel (2i + r, 2j + t).
+enum PasteLayout : int { kNatural = 0, kPhases = 1 };
+
 // (1) nrm_raw[b, l] = sqrt(sum over the 3x3 window around l, zero outside the
 // hd x wd grid, of ||bd[b, pixel]||^2).
 template <typename T>
@@ -109,10 +127,15 @@ __device__ __forceinline__ float fused_score(const float* __restrict__ sb, int l
 // probs[l, p] = exp(fused * g[l] * scale - max) / sum * g[l]. A gated row
 // (g = 0) still adds exp(0 - max) to the sum. Grid (ceil(P/32), B),
 // block (32, 8); each thread runs an online max/sum over its rows, the
-// block merges the 8 partials, and a second sweep writes probs.
+// block merges the 8 partials, and a second sweep writes probs. MODE picks
+// a variant (see StageMode); probs16 and col_inv are written only by
+// kPasteBf16 and kFoldNorm.
+template <int MODE = kFull>
 __global__ void __launch_bounds__(SM_COLS * SM_ROWS)
 fuse_softmax_kernel(const float* __restrict__ s, const float* __restrict__ mm,
-                    float* __restrict__ probs, int hd, int wd, float scale) {
+                    float* __restrict__ probs, int hd, int wd, float scale,
+                    __nv_bfloat16* __restrict__ probs16 = nullptr,
+                    float* __restrict__ col_inv = nullptr) {
   __shared__ float part_max[SM_ROWS][SM_COLS];
   __shared__ float part_sum[SM_ROWS][SM_COLS];
   const int L = hd * wd;
@@ -126,8 +149,9 @@ fuse_softmax_kernel(const float* __restrict__ s, const float* __restrict__ mm,
   float run_max = -INFINITY, run_sum = 0.f;
   if (p < L) {
     for (int l = ty; l < L; l += SM_ROWS) {
-      const float f = fused_score(sb, l, p, wd, L);
+      const float f = MODE == kNoFuse ? sb[(size_t)l * L + p] : fused_score(sb, l, p, wd, L);
       pb[(size_t)l * L + p] = f;  // kept for the second sweep
+      if constexpr (MODE == kNoSoftmax) continue;
       const float logit = f * g[l] * scale;
       if (logit > run_max) {
         run_sum = run_sum * expf(run_max - logit) + 1.f;
@@ -137,6 +161,7 @@ fuse_softmax_kernel(const float* __restrict__ s, const float* __restrict__ mm,
       }
     }
   }
+  if constexpr (MODE == kNoSoftmax) return;
   part_max[ty][tx] = run_max;
   part_sum[ty][tx] = run_sum;
   __syncthreads();
@@ -149,10 +174,20 @@ fuse_softmax_kernel(const float* __restrict__ s, const float* __restrict__ mm,
   }
   if (p < L) {
     const float inv = 1.f / col_sum;
+    if constexpr (MODE == kFoldNorm) {
+      if (ty == 0) col_inv[(size_t)b * L + p] = inv;
+    }
     for (int l = ty; l < L; l += SM_ROWS) {
       float* cell = pb + (size_t)l * L + p;
       const float gl = g[l];
-      *cell = expf(*cell * gl * scale - col_max) * inv * gl;
+      if constexpr (MODE == kFoldNorm) {
+        *cell = expf(*cell * gl * scale - col_max) * gl;
+      } else if constexpr (MODE == kPasteBf16) {
+        probs16[((size_t)b * L + l) * L + p] =
+            __float2bfloat16(expf(*cell * gl * scale - col_max) * inv * gl);
+      } else {
+        *cell = expf(*cell * gl * scale - col_max) * inv * gl;
+      }
     }
   }
 }
@@ -164,11 +199,15 @@ fuse_softmax_kernel(const float* __restrict__ s, const float* __restrict__ mm,
 // with a in {0, 1} for r = 0 and {-1, 0} for r = 1 (bb likewise from t),
 // terms with a position outside the grid being zero. One GEMM per phase:
 // M = P positions, N = C channels, K = 4 offsets x L rows.
-// Grid (ceil(C/TN), 4 * ceil(P/TM), B), GEMM_THREADS threads.
-template <typename T>
+// Grid (ceil(C/TN), 4 * ceil(P/TM), B), GEMM_THREADS threads. MODE
+// kPasteBf16 and kFoldNorm change the probs load (see StageMode); LAYOUT
+// addresses b_full and y (see PasteLayout).
+template <typename T, int MODE = kFull, int LAYOUT = kNatural>
 __global__ void __launch_bounds__(GEMM_THREADS)
 paste_kernel(const float* __restrict__ probs, const T* __restrict__ b_full,
-             T* __restrict__ y, int hd, int wd, int C) {
+             T* __restrict__ y, int hd, int wd, int C,
+             const __nv_bfloat16* __restrict__ probs16 = nullptr,
+             const float* __restrict__ col_inv = nullptr) {
   __shared__ float As[TK][TM + SMEM_PAD];  // probs side, rows m
   __shared__ float Bs[TK][TN + SMEM_PAD];  // b_full side, channels
   const int L = hd * wd;
@@ -199,7 +238,15 @@ paste_kernel(const float* __restrict__ probs, const T* __restrict__ b_full,
         float va = 0.f;
         if (l < L && m < L) {
           const int pi = m / wd - a, pj = m % wd - bb;
-          if (pi >= 0 && pi < hd && pj >= 0 && pj < wd) va = pb[(size_t)l * L + pi * wd + pj];
+          if (pi >= 0 && pi < hd && pj >= 0 && pj < wd) {
+            const int q = pi * wd + pj;
+            if constexpr (MODE == kPasteBf16) {
+              va = __bfloat162float(probs16[((size_t)b * L + l) * L + q]);
+            } else {
+              va = pb[(size_t)l * L + q];
+            }
+            if constexpr (MODE == kFoldNorm) va *= col_inv[(size_t)b * L + q];
+          }
         }
         As[k][mn] = va;
         // B: b_full[2(li + a) + r, 2(lj + bb) + t, c]
@@ -207,8 +254,14 @@ paste_kernel(const float* __restrict__ probs, const T* __restrict__ b_full,
         float vb = 0.f;
         if (l < L && c < C) {
           const int si = l / wd + a, sj = l % wd + bb;
-          if (si >= 0 && si < hd && sj >= 0 && sj < wd)
-            vb = to_f(bfb[((size_t)(2 * si + r) * W2 + (2 * sj + t)) * C + c]);
+          if (si >= 0 && si < hd && sj >= 0 && sj < wd) {
+            if constexpr (LAYOUT == kNatural) {
+              vb = to_f(bfb[((size_t)(2 * si + r) * W2 + (2 * sj + t)) * C + c]);
+            } else {
+              vb = to_f(bfb[((size_t)phase * L + si * wd + sj) * C + c]);
+            }
+            if constexpr (MODE == kPasteBf16) vb = __bfloat162float(__float2bfloat16(vb));
+          }
         }
         Bs[k][mn] = vb;
       }
@@ -220,8 +273,13 @@ paste_kernel(const float* __restrict__ probs, const T* __restrict__ b_full,
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + ty * 4 + i;
     if (m >= L) continue;
-    const int yi = 2 * (m / wd) + r, yj = 2 * (m % wd) + t;
-    T* out = y + (((size_t)b * 2 * hd + yi) * W2 + yj) * C;
+    T* out;
+    if constexpr (LAYOUT == kNatural) {
+      const int yi = 2 * (m / wd) + r, yj = 2 * (m % wd) + t;
+      out = y + (((size_t)b * 2 * hd + yi) * W2 + yj) * C;
+    } else {
+      out = y + (((size_t)b * 4 + phase) * L + m) * C;
+    }
     for (int j = 0; j < 4; ++j) {
       const int c = c0 + tx * 4 + j;
       if (c < C) out[c] = from_f<T>(acc[i][j] / 4.f);

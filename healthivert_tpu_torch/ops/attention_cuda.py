@@ -11,7 +11,13 @@ sm_90a with nvcc at first use, loaded with ctypes) or raises; on a CPU
 tensor each runs its plain PyTorch version (`attention_v2_reference`,
 `attention_v2_bwd_reference`), which the CPU tests hold against the JAX
 package. `AttentionV2Function` is the counterpart of the custom VJP
-`attention_v2_diff` (:822-850).
+`attention_v2_diff` (:822-850). `attention_scores_paste` replaces the v1
+Pallas kernel `attention_scores_paste` (:199, body `_attention_kernel`
+:98-195), which works on patch tensors built beforehand
+(csrc/attention_v1.cu; plain version `attention_scores_paste_reference`).
+The library also holds the forward's stage ablation
+(csrc/attention_v2_ablate.cu), whose wrappers live in
+`healthivert_tpu_torch.experiments.attn_ablate`.
 
 Each kernel's source note says what bounds it on an H100 and what its
 design does about it.
@@ -42,12 +48,13 @@ from .contextual_attention import (
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_v2_common.cuh",
-           "attention_v2_kernels.cuh")
+SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_v1.cu",
+           "attention_v2_ablate.cu", "attention_v2_common.cuh", "attention_v2_kernels.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-shared", "-gencode", "arch=compute_90a,code=sm_90a")
 
 
 class BuildInfo(NamedTuple):
@@ -72,29 +79,41 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> BuildInfo:
-    """Compile the .cu files of SOURCES, in one nvcc call, into one library
-    in BUILD_DIR (named by a hash of the sources and flags, so a stale
-    library is never loaded) and return where it is, how long nvcc took and
-    its ptxas report. force=True rebuilds."""
-    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    """Compile each .cu file of SOURCES in its own nvcc process, all started
+    together, and link the objects into one library in BUILD_DIR (named by a
+    hash of the sources and flags, so a stale library is never loaded).
+    Returns where it is, how long the build took and the ptxas report.
+    force=True rebuilds."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
     out = BUILD_DIR / f"attention_v2_{digest.hexdigest()[:16]}.so"
     if out.exists() and not force:
         return BuildInfo(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cus = [str(CSRC / name) for name in SOURCES if name.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cus]
+    nvcc = _nvcc()
+    stem = BUILD_DIR / f"{out.stem}.tmp{os.getpid()}"
+    units = [name for name in SOURCES if name.endswith(".cu")]
+    objs = [f"{stem}.{Path(name).stem}.o" for name in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for name, obj in zip(units, objs)]
+    reports = [proc.communicate()[0] for proc in procs]
+    failed = [f"{name} ({proc.returncode}):\n{report}"
+              for name, proc, report in zip(units, procs, reports) if proc.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *LINK_FLAGS, "-o", f"{stem}.so", *objs],
+                              capture_output=True, text=True)
+        if link.returncode:
+            failed.append(f"link ({link.returncode}):\n{link.stdout}{link.stderr}")
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return BuildInfo(out, seconds, (proc.stdout + proc.stderr).strip())
+    for obj in objs:
+        Path(obj).unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(f"{stem}.so", out)
+    return BuildInfo(out, seconds, "\n".join(reports).strip())
 
 
 def load_library(force_build: bool = False):
@@ -112,6 +131,16 @@ def load_library(force_build: bool = False):
             fn = lib.hv_attention_v2_backward
             fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_scores_paste
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_v2_ablate
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             _lib, _build_info = lib, info
@@ -302,6 +331,107 @@ def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int
 
 
 attention_v2_bwd.launches = 0  # kernel launches in this process, counted above
+
+
+def attention_scores_paste_reference(fpat, wnorm, raw, mm, hd: int, wd: int,
+                                     scale: float = 10.0):
+    """Plain PyTorch version of `attention_scores_paste`, in float32, from
+    the einsum formulation of healthivert_tpu/ops/contextual_attention.py:
+    169-206 without the fold. Returns vals (B, P, RC) in fpat's dtype."""
+    f32 = torch.float32
+    s = torch.einsum("blk,bpk->blp", wnorm.to(f32), fpat.to(f32))
+    g = mm.to(f32)[:, :, None]
+    probs = torch.softmax(fuse_scores(s, wd) * g * scale, dim=1) * g
+    return torch.einsum("blp,blr->bpr", probs, raw.to(f32)).to(fpat.dtype)
+
+
+def _check_v1(fpat, wnorm, raw, mm, hd, wd):
+    if fpat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention_scores_paste takes float32 or bfloat16, got {fpat.dtype}")
+    if fpat.dim() != 3 or wnorm.dim() != 3 or raw.dim() != 3:
+        raise ValueError("attention_scores_paste: fpat, wnorm and raw must be (B, N, K)")
+    bs, num_p, k = fpat.shape
+    num_l = hd * wd
+    if num_p != num_l:
+        raise ValueError(f"attention_scores_paste: P = {num_p}, expected hd * wd = {num_l}")
+    want = {
+        "fpat": (fpat, (bs, num_l, k), fpat.dtype),
+        "wnorm": (wnorm, (bs, num_l, k), fpat.dtype),
+        "raw": (raw, (bs, num_l, raw.shape[-1]), fpat.dtype),
+        "mm": (mm, (bs, num_l), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"attention_scores_paste: {name} is {tuple(t.shape)} {t.dtype}, "
+                f"expected {shape} {dtype}"
+            )
+        if t.device != fpat.device:
+            raise ValueError(
+                f"attention_scores_paste: {name} is on {t.device}, fpat on {fpat.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"attention_scores_paste: {name} must be contiguous")
+    if hd < 2 or wd < 2:
+        raise ValueError("attention_scores_paste: the matching grid must be at least 2 x 2")
+
+
+def attention_scores_paste(fpat, wnorm, raw, mm, hd: int, wd: int, scale: float = 10.0):
+    """Contextual attention on patch tensors (v1), before the fold.
+
+    fpat: (B, P, K) foreground patches; wnorm: (B, L, K) background patches,
+    already divided by their norm; raw: (B, L, RC) raw patches, all in one
+    dtype (float32 or bfloat16); mm: (B, L) float32 gate. L = P = hd * wd.
+    Returns vals (B, P, RC) = (gated softmax of the fused scores)^T raw, in
+    fpat's dtype."""
+    if fpat.device.type == "cpu":
+        return attention_scores_paste_reference(fpat, wnorm, raw, mm, hd, wd, scale)
+    if fpat.device.type != "cuda":
+        raise ValueError(f"attention_scores_paste: no kernel for device {fpat.device}")
+    _check_v1(fpat, wnorm, raw, mm, hd, wd)
+    lib, _ = load_library()
+    bs, num_l, k = fpat.shape
+    num_r = raw.shape[-1]
+    dev = fpat.device
+    vals = torch.empty((bs, num_l, num_r), dtype=fpat.dtype, device=dev)
+    s = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
+    probs = torch.empty_like(s)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_scores_paste(
+            fpat.data_ptr(), wnorm.data_ptr(), raw.data_ptr(), mm.data_ptr(),
+            vals.data_ptr(), s.data_ptr(), probs.data_ptr(),
+            bs, hd, wd, k, num_r, float(scale), 1 if fpat.dtype == torch.bfloat16 else 0,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"attention_scores_paste kernel launch failed: CUDA error {rc}")
+    attention_scores_paste.launches += 1
+    return vals
+
+
+attention_scores_paste.launches = 0  # kernel launches in this process, counted above
+
+
+def v1_patches(fd, bd, b_full):
+    """The v1 kernel's operands from feature maps, as the JAX package's
+    contextual_attention builds them: 3 x 3 patches of fd, norm-scaled 3 x 3
+    patches of bd, 4 x 4 stride-2 patches of b_full, in fd's dtype."""
+    bs, hd, wd, _ = fd.shape
+    num_l = hd * wd
+    f32 = torch.float32
+    fpat = extract_patches(fd, 3, 1).reshape(bs, num_l, -1)
+    wpat = extract_patches(bd.to(f32), 3, 1).reshape(bs, num_l, -1)
+    nrm = torch.sqrt(torch.sum(wpat * wpat, dim=-1, keepdim=True))
+    wnorm = (wpat / torch.clamp(nrm, min=1e-4)).to(fd.dtype)
+    raw = extract_patches(b_full, 4, 2).reshape(bs, num_l, -1)
+    return fpat.contiguous(), wnorm.contiguous(), raw.contiguous()
+
+
+def v1_fold(vals, hd: int, wd: int):
+    """The v1 kernel's patch values (B, P, 16C) folded into y (B, 2hd, 2wd, C)."""
+    bs, c = vals.shape[0], vals.shape[-1] // 16
+    folded = _fold_overlap_add(vals.float().reshape(bs, hd, wd, 4, 4, c), 2 * hd, 2 * wd, 2, 4)
+    return folded.to(vals.dtype)
 
 
 class AttentionV2Function(torch.autograd.Function):

@@ -1,5 +1,6 @@
-"""The CUDA attention kernels, forward and backward, against their plain
-PyTorch versions, on the card.
+"""The CUDA attention kernels (forward, backward, the v1 patch attention
+and the forward's stage ablation) against their plain PyTorch versions, on
+the card.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -21,18 +22,28 @@ of sums, so float32 gets |k - r| <= 1e-4 * max|r| (dfd reaches ~2e2 while
 entries near zero come from cancelling sums; seen 3.3e-6 * max|r| on an
 H100). bf16 outputs get two bf16 ulps of |r| plus 1e-4 * max|r| for
 entries whose float32 values cancelled to near zero (seen: one ulp).
+
+v1 (patch values from patch tensors): as y of the forward, atol 3e-4 in
+float32 and two bf16 ulps in bf16. Ablation, every mode in both layouts:
+`attn_ablate.ablate_within`, whose tolerance is stated beside its
+constants (y's, widened for the unnormalised no_softmax outputs and for
+paste_bf16's rounding straddles; no_paste and floor exactly zero).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from healthivert_tpu_torch.experiments import attn_ablate
 from healthivert_tpu_torch.ops.attention_cuda import (
     AttentionV2Function,
+    attention_scores_paste,
+    attention_scores_paste_reference,
     attention_v2,
     attention_v2_bwd,
     attention_v2_bwd_reference,
     attention_v2_reference,
+    v1_patches,
 )
 
 pytestmark = pytest.mark.cuda
@@ -181,3 +192,71 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
         call(a5=args[5].cpu())
     with pytest.raises(ValueError):  # non-contiguous cotangent
         call(a3=dy.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("band", BANDS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_v1_kernel_matches_plain(cuda_device, shape, band, dtype):
+    b, hd, wd, c = shape
+    fd, bd, b_full, mm = make_inputs(b, hd, wd, c, band, dtype, cuda_device)
+    patches = v1_patches(fd, bd, b_full)
+    before = attention_scores_paste.launches
+    got = attention_scores_paste(*patches, mm, hd, wd, 10.0)
+    torch.cuda.synchronize()
+    assert attention_scores_paste.launches == before + 1
+    want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
+    assert got.dtype == dtype and got.shape == (b, hd * wd, 16 * c)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=0, atol=3e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1e-3)
+
+
+def test_v1_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    fd, bd, b_full, mm = make_inputs(1, 8, 8, 4, "middle", torch.float32, cuda_device)
+    fpat, wnorm, raw = v1_patches(fd, bd, b_full)
+    with pytest.raises(TypeError):
+        attention_scores_paste(fpat.half(), wnorm.half(), raw.half(), mm, 8, 8)
+    with pytest.raises(ValueError):  # operands in two dtypes
+        attention_scores_paste(fpat, wnorm.to(torch.bfloat16), raw, mm, 8, 8)
+    with pytest.raises(ValueError):  # P != hd * wd
+        attention_scores_paste(fpat, wnorm, raw, mm, 8, 4)
+    with pytest.raises(ValueError):  # non-contiguous
+        attention_scores_paste(fpat, wnorm, raw.transpose(1, 2).contiguous().transpose(1, 2),
+                               mm, 8, 8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("layout", attn_ablate.LAYOUTS)
+@pytest.mark.parametrize("mode", attn_ablate.MODES)
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ablate_kernel_matches_plain(cuda_device, shape, mode, layout, dtype):
+    b, hd, wd, c = shape
+    fd, bd, b_full, mm = make_inputs(b, hd, wd, c, "bottom", dtype, cuda_device)
+    b_in = b_full if layout == "natural" else attn_ablate.to_phases(b_full, hd, wd)
+    got = attn_ablate.attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
+    torch.cuda.synchronize()
+    want = attn_ablate.ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
+    assert got.dtype == dtype and got.shape == b_in.shape
+    _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
+    pmax, rmax = float(probs.max()), float(b_full.float().abs().max())
+    ok, err = attn_ablate.ablate_within(got, want, mode, pmax, rmax)
+    assert ok, err
+
+
+def test_ablate_entry_functions_count_their_launches(cuda_device):
+    fd, bd, b_full, mm = make_inputs(1, 8, 8, 4, "top", torch.float32, cuda_device)
+    bph = attn_ablate.to_phases(b_full, 8, 8)
+    fns = (attn_ablate.run, attn_ablate.run_padded, attn_ablate.run_auto, attn_ablate.run_fold)
+    before = [f.launches for f in fns]
+    outs = [f(fd, bd, bph if f is attn_ablate.run_padded else b_full, mm, 8, 8) for f in fns]
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [n + 1 for n in before]
+    outs[1] = attn_ablate.from_phases(outs[1])
+    for y in outs[1:]:  # one arithmetic in both layouts: bit-equal
+        assert torch.equal(y, outs[0])
+    torch.testing.assert_close(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8), rtol=0, atol=0)
+    with pytest.raises(ValueError):  # b_full in the phase layout's place
+        attn_ablate.run_padded(fd, bd, b_full, mm, 8, 8)

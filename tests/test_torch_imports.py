@@ -1,5 +1,6 @@
 """Guards: the port and chip_smoke.py import nothing of JAX or of the JAX
-package, and importing the port leaves JAX unloaded."""
+package (nor the repository's root `experiments` and `bench` modules, which
+are JAX code), and importing the port leaves JAX unloaded."""
 
 import ast
 import os
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "healthivert_tpu_torch"
-BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "healthivert_tpu"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "healthivert_tpu", "experiments", "bench"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -37,7 +38,7 @@ def test_source_imports_nothing_of_jax(path):
 def test_guard_sees_the_whole_package():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in p.parents}
     assert {"ops/attention_cuda.py", "engine/infer3d.py", "models/generator.py",
-            "utils/weights.py", "data/sampler.py"} <= names
+            "utils/weights.py", "data/sampler.py", "experiments/attn_ablate.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
