@@ -10,16 +10,21 @@ JSON line:
                 is switched off for the float32 phases
   2. build      one nvcc process per source for sm_90a, all started
                 together (csrc/attention_v2.cu, attention_v2_bwd.cu,
-                attention_v1.cu, attention_v2_ablate.cu), linked into one
-                library, with the -Xptxas -v register and shared-memory
-                report of each kernel; then, for comparison, the seconds of
-                one nvcc call over the same files (its library thrown away)
+                attention_tc.cu, attention_v1.cu, attention_v2_ablate.cu),
+                linked into one library, with the -Xptxas -v register and
+                shared-memory report of each kernel; the SASS of the bf16
+                route's six GEMM kernels (cuobjdump -sass) must hold HGMMA
+                (wgmma) and UTMALDG (TMA loads); then, for comparison, the
+                seconds of one nvcc call over the same files (its library
+                thrown away)
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
-                f32 and bf16, hole band in the middle, bottom and top; and
-                one odd case (16 x 16, C=4): y, s, probs, nrm_raw
+                f32 (CUDA-core route) and bf16 (tensor-core route), hole
+                band in the middle, bottom and top; and odd cases (16 x 16,
+                C=4; 6 x 10, C=20): y, s, probs, nrm_raw
   4. kernel_bwd attention_v2_bwd kernel vs plain version on the forward
                 kernel's residuals and a random cotangent, at the same
-                cases plus 6 x 10, C=20: dfd, dbd, db_full
+                cases plus 6 x 10, C=20, and B=64, 32 x 32, C=64, bf16:
+                dfd, dbd, db_full
   5. kernel_v1  attention_scores_paste (v1) kernel vs plain version on the
                 patch tensors of the same cases at production shapes (K =
                 576, RC = 1024), plus 6 x 10, C=20 (K = 180, RC = 320)
@@ -29,15 +34,20 @@ JSON line:
                 256), batch 2, float32, on the card against the port's CPU
                 path: every loss and every G and D gradient tensor
   8. fwd_bf16   generator_forward at the 3D synthesis batch of 64, bf16:
-                one kernel launch per forward, finite outputs, slices/s
+                one tensor-core launch per forward, finite outputs,
+                slices/s
   9. synth3d    the serving path: synthesize_volumes on a 256 x 256 x 64
-                synthetic spine, vertebrae 19-21, bf16, batch 64; kernel
-                launches must equal the synthesis's forward dispatches
+                synthetic spine, vertebrae 19-21, bf16, batch 64; launches
+                on the tensor-core route must equal the synthesis's forward
+                dispatches
  10. train_bf16 the training path: run_training with the shipped recipe
                 (checkpoints/pretrained_synthetic/train_opt.txt: batch 32,
                 bf16), 2 warm-up and 20 timed steps, each timed; one
-                forward and one backward kernel launch per step, finite
-                losses, every parameter tensor moved
+                forward and one backward launch on the tensor-core route
+                per step, finite losses, every parameter tensor moved; one
+                more step under torch.profiler for its top ten device
+                kernels; then the top ten of one bf16 forward at batch 64
+                (the profiler first starts after the timed steps)
  11. ablate     the forward's stage ablation: every mode in both layouts,
                 kernel vs plain on soft attention at (2, 32, 32, 64) f32,
                 (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16, and on the
@@ -48,7 +58,8 @@ JSON line:
  12. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
-                (kernel ms from the ablation's own timing)
+                (kernel ms from the ablation's own timing); the forward's
+                and the backward's device time per stage (torch.profiler)
 
 then the `kernels` line, and last the device line. Any failed check raises
 and the script exits non-zero without the last line. Run from the root of
@@ -56,10 +67,10 @@ the repository:  python3 chip_smoke.py
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
-import types
 from pathlib import Path
 
 import numpy as np
@@ -83,6 +94,7 @@ from healthivert_tpu_torch.experiments.attn_ablate import (
     run_padded,
     to_phases,
 )
+from healthivert_tpu_torch.experiments.train_timing import read_recipe
 from healthivert_tpu_torch.models import pix2pix
 from healthivert_tpu_torch.models.pix2pix import Pix2PixConfig, generator_forward
 from healthivert_tpu_torch.ops import attention_cuda
@@ -194,19 +206,42 @@ def one_call_build_seconds():
     return seconds
 
 
+# the bf16 route's GEMM kernels, by the mangled name of their instantiation
+TC_GEMMS = {"score": "lp_gemmILi0E", "dprobs": "lp_gemmILi1E", "paste": "pc_gemmILi2E",
+            "db_full": "pc_gemmILi3E", "dfd": "pc_gemmILi4E", "dbd": "pc_gemmILi5E"}
+
+
+def tc_sass(path):
+    """HGMMA and UTMALDG counts in the SASS of each of the tensor-core
+    route's GEMM kernels; each must hold both."""
+    cuobjdump = Path(attention_cuda._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    found = {}
+    for name, mangled in TC_GEMMS.items():
+        bodies = [f for f in funcs if mangled in f.split("\n", 1)[0]]
+        check(len(bodies) == 1, f"build: {len(bodies)} SASS functions for {name} ({mangled})")
+        found[name] = {op: bodies[0].count(op) for op in ("HGMMA", "UTMALDG")}
+        check(all(found[name].values()), f"build: {name} SASS lacks HGMMA or UTMALDG: {found[name]}")
+    return found
+
+
 def phase_build():
     _, info = attention_cuda.load_library(force_build=True)
     report = [ln.strip() for ln in info.ptxas.splitlines()
-              if "Used" in ln or "spill" in ln or "Compiling entry" in ln]
+              if "Used" in ln or "spill" in ln or "Compiling entry" in ln or "C7515" in ln]
     emit("build", seconds=info.seconds, one_call_seconds=one_call_build_seconds(),
          flags=list(attention_cuda.NVCC_FLAGS),
-         sources=[n for n in attention_cuda.SOURCES if n.endswith(".cu")], ptxas=report)
+         sources=[n for n in attention_cuda.SOURCES if n.endswith(".cu")],
+         tc_sass=tc_sass(info.path), ptxas=report)
 
 
 def phase_kernel():
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
-    cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16)]
+    cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
+              (1, 6, 10, 20, "middle", torch.bfloat16)]
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dt)
@@ -257,7 +292,8 @@ def phase_kernel_bwd():
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
-              (1, 6, 10, 20, "middle", torch.float32), (1, 6, 10, 20, "bottom", torch.bfloat16)]
+              (1, 6, 10, 20, "middle", torch.float32), (1, 6, 10, 20, "bottom", torch.bfloat16),
+              (64, 32, 32, 64, "middle", torch.bfloat16)]  # B * L = 65536 rows
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         args = backward_inputs(b, hd, wd, c, band, dt)
@@ -444,9 +480,9 @@ def phase_fwd_bf16(gen, cfg, batch_size=64, reps=5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(reps):
-            before = attention_v2.launches
+            before = attention_v2.tc_launches
             out = generator_forward(gen, batch, cfg)
-            check(attention_v2.launches == before + 1, "bf16 forward: launches != 1")
+            check(attention_v2.tc_launches == before + 1, "bf16 forward: tensor-core launches != 1")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     for key in ("fake_b", "fine_seg_bin", "pred2_h"):
@@ -457,20 +493,34 @@ def phase_fwd_bf16(gen, cfg, batch_size=64, reps=5):
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
 
+def phase_profile_fwd(gen, cfg, batch_size=64):
+    """The top ten device kernels of one bf16 forward at batch 64. It runs
+    after train_bf16, so that the profiler is never on in the process before
+    that phase's timed steps."""
+    batch = to_device(
+        SyntheticDataset(batch_size=batch_size, seed=0, n_volumes=2).sample_batch(), "cuda"
+    )
+    with torch.no_grad():
+        top = top_kernels(lambda: generator_forward(gen, batch, cfg))
+    emit("profile", of=f"one bf16 generator_forward at batch {batch_size}", **top)
+
+
 def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     ct, labels, cam = make_spine_volume(np.random.default_rng(0), fractured={20: 0.6})
     volumes = [(ct, labels, v, cam) for v in vert_ids]
     torch.cuda.synchronize()
-    attention_v2.launches = 0
+    attention_v2.launches = attention_v2.tc_launches = 0
     infer3d._forward.dispatches = 0
     t0 = time.perf_counter()
     results = infer3d.synthesize_volumes(gen, cfg, volumes, batch_size=batch_size,
                                          use_bf16=True, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, dispatches = attention_v2.launches, infer3d._forward.dispatches
+    launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
     check(launches > 0, "main path launched the attention kernel no time")
-    check(launches == dispatches, f"launches {launches} != dispatches {dispatches}")
+    check(launches == dispatches == attention_v2.launches,
+          f"tensor-core launches {launches}, all launches {attention_v2.launches}, "
+          f"dispatches {dispatches}")
     labels_ok = {}
     for (ct_fake, lb_fake), v in zip(results, vert_ids):
         check(ct_fake.shape == ct.shape and lb_fake.shape == ct.shape, f"vertebra {v}: shape")
@@ -485,57 +535,47 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     return launches
 
 
-def read_recipe(path=RECIPE):
-    """The option namespace of a saved train_opt.txt ("name: value" lines,
-    with a "[default: ...]" note where the value is not the default)."""
-    opt = {}
-    for line in path.read_text().splitlines():
-        if ":" not in line or line.startswith("-"):
-            continue
-        key, value = line.split(":", 1)
-        value = value.split("[default:")[0].strip()
-        for conv in (int, float):
-            try:
-                value = conv(value)
-                break
-            except ValueError:
-                pass
-        else:
-            value = {"True": True, "False": False, "None": None}.get(value, value)
-        opt[key.strip()] = value
-    return types.SimpleNamespace(**opt)
-
-
 def phase_train_bf16(warmup=2, timed=20):
-    """run_training on the shipped recipe; counts read per step."""
+    """run_training on the shipped recipe; counts read per step. One more
+    step after the timed ones runs under torch.profiler."""
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
     per_step, marks = [], []
+    prof = kernel_profiler()
 
     def on_step(step, losses):
-        per_step.append((attention_v2.launches, attention_v2_bwd.launches))
+        per_step.append((attention_v2.tc_launches, attention_v2_bwd.tc_launches))
         torch.cuda.synchronize()  # the step's pageable batch copy waits for the card anyway
         marks.append(time.perf_counter())
+        if step == warmup + timed:
+            prof.start()
+        elif step == warmup + timed + 1:
+            prof.stop()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention_v2.launches = attention_v2_bwd.launches = 0
-    state, cfg = run_training(opt, max_steps=warmup + timed, device="cuda", on_step=on_step)
+    attention_v2.tc_launches = attention_v2_bwd.tc_launches = 0
+    state, cfg = run_training(opt, max_steps=warmup + timed + 1, device="cuda", on_step=on_step)
     torch.cuda.synchronize()
-    fwd, bwd = attention_v2.launches, attention_v2_bwd.launches
+    fwd, bwd = attention_v2.tc_launches, attention_v2_bwd.tc_launches
     peak = torch.cuda.max_memory_allocated()
     steps = [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip([(0, 0)] + per_step, per_step)]
-    check(state.step == warmup + timed, f"train_bf16: {state.step} steps")
-    check(all(d == (1, 1) for d in steps), f"train_bf16: launches per step {steps}")
-    check(bwd > 0 and (fwd, bwd) == (state.step, state.step), f"launches {fwd}, {bwd}")
+    check(state.step == warmup + timed + 1, f"train_bf16: {state.step} steps")
+    check(all(d == (1, 1) for d in steps), f"train_bf16: tensor-core launches per step {steps}")
+    check(bwd > 0 and (fwd, bwd) == (state.step, state.step)
+          and (attention_v2.launches, attention_v2_bwd.launches) == (fwd, bwd),
+          f"launches {fwd}, {bwd}; both routes {attention_v2.launches}, "
+          f"{attention_v2_bwd.launches}")
     start = pix2pix.init_state(cfg, seed=opt.seed, device="cuda")
     for net in ("gen", "d1", "d2", "d3"):
         a, b = getattr(start, net), getattr(state, net)
         for (k, p0), p1 in zip(a.named_parameters(), b.parameters()):
             check(not torch.equal(p0, p1), f"train_bf16: {net}.{k} did not move")
-    seconds = marks[-1] - marks[warmup - 1]
-    step_ms = [(b - a) * 1e3 for a, b in zip(marks[warmup - 1:], marks[warmup:])]
+    seconds = marks[warmup + timed - 1] - marks[warmup - 1]
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks[warmup - 1:warmup + timed - 1],
+                                              marks[warmup:warmup + timed])]
     emit("train_bf16", recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
          batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
          timed_steps=timed, ms_per_step=seconds / timed * 1e3,
@@ -543,7 +583,70 @@ def phase_train_bf16(warmup=2, timed=20):
          step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
          max_memory_allocated_bytes=peak,
          fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
+    emit("profile", of=f"one train step of the recipe (step {warmup + timed + 1}, batch "
+         f"{opt.batch_size})", **kernel_summary(prof))
     return bwd
+
+
+def kernel_profiler():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def kernel_ms(prof, calls=1):
+    """Device ms per call of each CUDA kernel in a finished profile (CUPTI
+    records the ctypes-launched kernels too), largest first."""
+    times = {}
+    for e in prof.key_averages():
+        # kernels and copies; not the spans that annotate them (Adam.step)
+        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        times[e.key] = times.get(e.key, 0.0) + us / 1e3 / calls
+    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
+
+
+def kernel_summary(prof, calls=1, top=10):
+    times = kernel_ms(prof, calls)
+    total = sum(times.values())
+    return {"device_ms": total, "kernels": len(times),
+            "top": [{"kernel": k[:160], "ms": v, "share": v / total if total else None}
+                    for k, v in list(times.items())[:top]]}
+
+
+def top_kernels(fn):
+    """The top ten device kernels of one call of fn."""
+    torch.cuda.synchronize()
+    with kernel_profiler() as prof:
+        fn()
+        torch.cuda.synchronize()
+    return kernel_summary(prof)
+
+
+# stages of the tensor-core route, by a part of each kernel's name; the
+# rest is the wrapper's channel pad and phase split, fills and allocations
+FWD_STAGES = (("norm", "patch_norm"), ("score", "lp_gemm<0>"),
+              ("fuse_softmax", "fuse_softmax_tc"), ("paste", "pc_gemm<2>"))
+BWD_STAGES = (("dprobs", "lp_gemm<1>"), ("split_probs", "split_rows"), ("db_full", "pc_gemm<3>"),
+              ("softmax_bwd", "softmax_bwd"), ("fuse_adj", "fuse_adj_tc"), ("dn2", "dn2_kernel"),
+              ("dfd", "pc_gemm<4>"), ("dbd", "pc_gemm<5>"))
+
+
+def stage_split(fn, stages, calls=5):
+    """Device ms per call of each stage over `calls` calls of fn."""
+    torch.cuda.synchronize()
+    with kernel_profiler() as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {name: 0.0 for name, _ in stages}
+    split["wrapper"] = 0.0
+    for name, ms in kernel_ms(prof, calls).items():
+        stage = next((st for st, part in stages if part in name), "wrapper")
+        split[stage] += ms
+    return split
 
 
 def bound_ms(b, hd, wd, c, dtype):
@@ -599,11 +702,12 @@ def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
         k1 = time_events(kernel, 20)
         k2 = time_events(kernel, 20)
         p2 = time_events(plain, 5)
+        stages = stage_split(kernel, FWD_STAGES)
     bms, bound_by, flops, nbytes = bound_ms(b, hd, wd, c, dtype)
     ms, plain_ms = min(k1, k2), min(p1, p2)
     emit("timing", kernel="attention_v2", shape=[b, hd, wd, c], dtype=str(dtype),
          kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
-         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
+         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err, stage_device_ms=stages)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
 
 
@@ -624,11 +728,12 @@ def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     k1 = time_events(kernel, 10)
     k2 = time_events(kernel, 10)
     p2 = time_events(plain, 3)
+    stages = stage_split(kernel, BWD_STAGES)
     bms, bound_by, flops, nbytes = bwd_bound_ms(b, hd, wd, c, dtype)
     ms, plain_ms = min(k1, k2), min(p1, p2)
     emit("timing", kernel="attention_v2_bwd", shape=[b, hd, wd, c], dtype=str(dtype),
          kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
-         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
+         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err, stage_device_ms=stages)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
 
 
@@ -725,8 +830,9 @@ def main():
     gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
     phase_fwd_bf16(gen, cfg)
     launches = phase_synth3d(gen, cfg)
-    del gen
     bwd_launches = phase_train_bf16()
+    phase_profile_fwd(gen, cfg)
+    del gen
     ablation, ablate_launches = phase_ablate()
     t = phase_timing()
     tb = phase_timing_bwd()
@@ -742,14 +848,14 @@ def main():
              for name, line in ABLATE_REPLACES.items()]
     print(json.dumps({"kernels": [{
         "name": "attention_v2", "route": "cuda",
-        "source": "healthivert_tpu_torch/csrc/attention_v2.cu",
+        "source": "healthivert_tpu_torch/csrc/attention_tc.cu",
         "replaces": "healthivert_tpu/ops/attention_pallas.py:476",
         "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None,
     }, {
         "name": "attention_v2_bwd", "route": "cuda",
-        "source": "healthivert_tpu_torch/csrc/attention_v2_bwd.cu",
+        "source": "healthivert_tpu_torch/csrc/attention_tc.cu",
         "replaces": "healthivert_tpu/ops/attention_pallas.py:772",
         "launches": bwd_launches, "max_abs_err": tb["max_abs_err"], "ms": tb["ms"],
         "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],

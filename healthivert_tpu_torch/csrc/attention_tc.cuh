@@ -1,0 +1,272 @@
+// The tensor-core GEMM mainloop of the bf16 route of the contextual
+// attention (attention_tc.cu): one kernel template, six GEMMs.
+//
+// Every operand is a bf16 tile of 64-element (128-byte) rows, loaded by TMA
+// into shared memory in the 128-byte swizzle that wgmma reads. One thread
+// keeps a ring of STAGES tiles in flight, each completing on its own `full`
+// mbarrier; one warpgroup (128 threads) issues wgmma.mma_async m64nNk16 on
+// the tiles that have arrived and keeps the float32 sums in registers. Each
+// warp arrives on a stage's `empty` mbarrier once its products have read
+// the stage, and the loading thread waits for all four before refilling it.
+//
+// The 2-D shifts of the attention (the 9 window offsets of the score, the
+// 4 or 16 taps of the paste) are TMA coordinates: each operand is a tensor
+// map over a view whose outer dimensions are the hd x wd grid, loaded at the
+// tile's grid corner plus a signed offset, and TMA fills what falls outside
+// the grid with zeros. No thread computes an operand's address or bounds.
+//
+// Positions. A tile of 64 (or 128) positions is a rectangle of the grid in
+// a padded row-major order: wdp = wd rounded up to a power of two >= 8 (to
+// a multiple of 128 above 64), position (i, j) at flat index i * wdp + j.
+// Columns j >= wd and rows i >= hd are phantoms: TMA gives them zeros or
+// shifted neighbours, the epilogue writes nothing for them, and an (L, P)
+// operand stored for a later GEMM holds zeros there (the scratch planes of
+// width kp = hd * wdp rounded up to 64, see attention_cuda.py).
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace hv_tc {
+
+constexpr int BK = 64;       // K chunk: one 128-byte swizzle row of bf16
+constexpr int BM = 64;       // rows of a tile: one wgmma m64
+constexpr int STAGES = 4;
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int TILE_BYTES = BM * BK * 2;     // 8 KiB: a 64 x 64 bf16 tile
+constexpr int STAGE_BYTES = 3 * TILE_BYTES;  // 24 KiB: A, A or B, B
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle.
+// K-major (rows of 64 K values): SBO = 1024 bytes between 8-row groups, LBO
+// unused; a 16-deep K step adds 32 bytes to the start. MN-major (rows of 64
+// N values, one row per K): SBO = 1024 bytes between groups of 8 K rows,
+// LBO (between 64-wide N atoms) unused at N = 64; a K step adds 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)1 << 16;            // LBO (unused)
+  d |= (uint64_t)(1024 >> 4) << 32;  // SBO
+  d |= (uint64_t)1 << 62;            // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define HV_F8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d = A B + (accumulate ? d : 0) for one 16-deep step: A (64 x 16)
+// K-major, B (16 x N) K-major (TRANS_B = 0) or MN-major (TRANS_B = 1), both
+// from shared memory.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %35, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %34;\n"
+      "}\n"
+      : HV_F8(0), HV_F8(8), HV_F8(16), HV_F8(24)
+      : "l"(da), "l"(db), "n"(TRANS_B), "r"(accumulate));
+}
+
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %66;\n"
+      "}\n"
+      : HV_F8(0), HV_F8(8), HV_F8(16), HV_F8(24), HV_F8(32), HV_F8(40), HV_F8(48), HV_F8(56)
+      : "l"(da), "l"(db), "n"(TRANS_B), "r"(accumulate));
+}
+
+#undef HV_F8
+
+// Row and column of accumulator register i of thread `tid` in an m64nN
+// tile: warp w owns rows 16w..16w+15; register 4j+q holds row lane/4 (+8
+// for q >= 2) and column 8j + 2 (lane % 4) (+1 for odd q).
+__device__ __forceinline__ int acc_row(int tid, int i) {
+  return (tid / 32) * 16 + ((i >> 1) & 1) * 8 + (tid % 32) / 4;
+}
+__device__ __forceinline__ int acc_col(int tid, int i) {
+  return (i >> 2) * 8 + (tid % 4) * 2 + (i & 1);
+}
+
+// The mainloop. OP supplies
+//   static constexpr int BN, NA (1 or 2 A tiles per stage, summed into one
+//   product: the hi and lo halves of a split operand), TRANS_B;
+//   int iters() const;
+//   void load(int it, uint8_t* a0, uint8_t* a1, uint8_t* b, uint64_t* bar) const
+//     (issues the stage's TMA loads on `bar`, thread 0 only);
+//   uint32_t stage_bytes() const;
+// and returns the sums in acc (the kernel's epilogue writes them out). Each
+// stage holds A tiles at 0 and TILE_BYTES and the B tile at B_OFF.
+template <class OP>
+__device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2]) {
+  constexpr int B_OFF = OP::NA * TILE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  __shared__ __align__(8) uint64_t empty[STAGES];
+  // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int n_it = op.iters();
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  auto issue = [&](int it) {
+    const int s = it % STAGES;
+    uint8_t* st = smem + s * STAGE_BYTES;
+    mbar_expect_tx(&full[s], op.stage_bytes());
+    op.load(it, st, st + TILE_BYTES, st + B_OFF, &full[s]);
+  };
+  if (tid == 0) {
+    for (int it = 0; it < STAGES && it < n_it; ++it) issue(it);
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % STAGES;
+    mbar_wait(&full[s], (it / STAGES) & 1);
+    const uint32_t st = smem_u32(smem + s * STAGE_BYTES);
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = desc_sw128(st + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
+#pragma unroll
+      for (int a = 0; a < OP::NA; ++a) {
+        const uint64_t da = desc_sw128(st + a * TILE_BYTES + kk * 32);
+        // the first product overwrites the sums: no zero fill of the
+        // registers, which would serialise the wgmma pipeline
+        const int accumulate = it > 0 || kk > 0 || a > 0;
+        if constexpr (OP::BN == 128) {
+          wgmma_n128<OP::TRANS_B>(acc, da, db, accumulate);
+        } else {
+          wgmma_n64<OP::TRANS_B>(acc, da, db, accumulate);
+        }
+      }
+    }
+    wgmma_commit();
+    // one group stays in flight; this warp's products of the previous one
+    // are done, so it releases that stage. The stage is refilled once all
+    // four warps have released it: wait_group orders only its own warp.
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (it >= 1) {
+      const int prev = it - 1;
+      if (tid % 32 == 0) mbar_arrive(&empty[prev % STAGES]);
+      if (tid == 0 && prev + STAGES < n_it) {
+        mbar_wait(&empty[prev % STAGES], (prev / STAGES) & 1);
+        issue(prev + STAGES);
+      }
+    }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+}
+
+// Shift (sy, sx) and phase plane of tap `tap` of each GEMM.
+//   window: the 9 offsets of a 3 x 3 window, o = (tap / 3 - 1, tap % 3 - 1);
+//   paste: offset ab in 0..3 of output phase (r, t) = (phase / 2,
+//     phase % 2), (a, bb) = (ab / 2 - r, ab % 2 - t); the 16 taps of the
+//     paste's adjoint in probs are phase = tap / 4, ab = tap % 4.
+__device__ __forceinline__ void window_tap(int tap, int& sy, int& sx) {
+  sy = tap / 3 - 1;
+  sx = tap % 3 - 1;
+}
+__device__ __forceinline__ void paste_tap(int phase, int ab, int& sy, int& sx) {
+  sy = ab / 2 - phase / 2;
+  sx = ab % 2 - phase % 2;
+}
+
+}  // namespace hv_tc

@@ -1,4 +1,6 @@
-// Contextual-attention forward for Hopper (sm_90a), with a plain C interface.
+// Contextual-attention forward for Hopper (sm_90a), with a plain C interface:
+// the float32 route, on the CUDA cores. bf16 inputs take the tensor-core
+// route of attention_tc.cu.
 //
 // Replaces the Pallas TPU kernel `attention_v2` / `_attention_v2_kernel`
 // (healthivert_tpu/ops/attention_pallas.py:304-549): scores of 3x3 patches
@@ -27,8 +29,8 @@
 //                           tau = sigma + d, and the gated column softmax
 //   4. paste_kernel         tiled float GEMM per output phase, K = 4 x L
 // The GEMMs run on the CUDA cores in float (64 x 64 tiles, 4 x 4 per
-// thread); tensor cores (wgmma), TMA and keeping (L, P) on chip are later
-// work.
+// thread), the route's own type; the stage ablation (attention_v2_ablate.cu)
+// shares these kernels as templates.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -59,19 +61,14 @@ void launch_all(const void* fd, const void* bd, const void* b_full, const float*
 }  // namespace
 
 // Launches the forward on `stream` and returns cudaGetLastError() (0 on
-// success). dtype_code: 0 = float32, 1 = bfloat16. Does not synchronise and
-// allocates nothing: every output and scratch buffer comes from the caller.
+// success). float32 inputs and outputs: bfloat16 takes the tensor-core
+// route (attention_tc.cu). Does not synchronise and allocates nothing:
+// every output and scratch buffer comes from the caller.
 extern "C" int hv_attention_v2_forward(const void* fd, const void* bd, const void* b_full,
                                        const float* mm, void* y, float* s, float* probs,
                                        float* nrm_raw, int B, int hd, int wd, int C,
-                                       float scale, int dtype_code, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1) {
-    launch_all<__nv_bfloat16>(fd, bd, b_full, mm, y, s, probs, nrm_raw, B, hd, wd, C, scale, st);
-  } else if (dtype_code == 0) {
-    launch_all<float>(fd, bd, b_full, mm, y, s, probs, nrm_raw, B, hd, wd, C, scale, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                       float scale, void* stream) {
+  launch_all<float>(fd, bd, b_full, mm, y, s, probs, nrm_raw, B, hd, wd, C, scale,
+                    static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,6 @@
-// Contextual-attention backward for Hopper (sm_90a), with a plain C interface.
+// Contextual-attention backward for Hopper (sm_90a), with a plain C interface:
+// the float32 route, on the CUDA cores. bf16 inputs take the tensor-core
+// route of attention_tc.cu.
 //
 // Replaces the Pallas TPU kernel `attention_v2_bwd` / `_attention_v2_bwd_kernel`
 // (healthivert_tpu/ops/attention_pallas.py:597-819): the adjoint of the
@@ -26,7 +28,7 @@
 //   2. dbfull_kernel        db_full = paste adjoint in b_full: tiled float
 //                           GEMM per output phase, M = L, N = C, K = 4 x P
 //                           (the forward's paste_kernel, probs transposed)
-//   3. softmax_bwd_kernel   per column p: t_p = sum_l P dq, then
+//   3. softmax_bwd_kernel   (attention_v2_common.cuh) per column p: t_p = sum_l P dq, then
 //                           dfused = P (dq - t_p) g scale, with dq = dprobs g
 //   4. fuse_adj_norm_kernel the fuse adjoint as one 9-tap gather of dfused
 //                           (the forward's gather with sigma and the +-1
@@ -37,9 +39,7 @@
 //                           the norm term 2 bd (3 x 3 box sum of dn / 2 nrm)
 // The GEMMs run on the CUDA cores in float (64 x 64 tiles, 4 x 4 per thread).
 // The TPU kernel's channel padding 64 -> 128 and offset-pair lane packing
-// exist for its 128 lanes only and are not carried over. Tensor cores
-// (wgmma), TMA and fusing the elementwise passes into the GEMMs are later
-// work.
+// exist for its 128 lanes only and are not carried over.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -184,51 +184,11 @@ dbfull_kernel(const float* __restrict__ probs, const T* __restrict__ dy,
   }
 }
 
-// (3) Softmax and gate backward, per column p, in place over dprobs:
-//   dq = dprobs * g[l],  t_p = sum_l probs * dq,
-//   dfused = probs * (dq - t_p) * g[l] * scale.
-// The saved probs are already gated, so they stand in for the softmax of
-// the gated logits (rows with g = 0 have dq = 0 and are gated again).
-// Grid (ceil(P/32), B), block (32, 8).
-__global__ void __launch_bounds__(SM_COLS * SM_ROWS)
-softmax_bwd_kernel(const float* __restrict__ probs, const float* __restrict__ mm,
-                   float* __restrict__ grad, int L, float scale) {
-  __shared__ float part[SM_ROWS][SM_COLS];
-  const int b = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int p = blockIdx.x * SM_COLS + tx;
-  const float* pb = probs + (size_t)b * L * L;
-  const float* g = mm + (size_t)b * L;
-  float* gb = grad + (size_t)b * L * L;
-
-  float acc = 0.f;
-  if (p < L) {
-    for (int l = ty; l < L; l += SM_ROWS) {
-      const size_t at = (size_t)l * L + p;
-      acc += pb[at] * gb[at] * g[l];
-    }
-  }
-  part[ty][tx] = acc;
-  __syncthreads();
-  float tcol = 0.f;
-  for (int rr = 0; rr < SM_ROWS; ++rr) tcol += part[rr][tx];
-  if (p < L) {
-    for (int l = ty; l < L; l += SM_ROWS) {
-      const size_t at = (size_t)l * L + p;
-      const float gl = g[l];
-      gb[at] = pb[at] * (gb[at] * gl - tcol) * gl * scale;
-    }
-  }
-}
-
 constexpr int ROW_THREADS = 256;
 
 // (4) Fuse adjoint and norm backward, one block per row a of sample b:
-//   ds[a, c] = sum over d in {-1, 0, 1} and sigma in {id, sigma+, sigma-} of
-//              dfused[sigma(a + d), sigma(c + d)],
-// terms with an index outside [0, L) or an invalid sigma being zero (the
-// transpose of the forward's fused_score, which reads s[sigma(l) + d, ...]).
-// Writes ds0 = ds / max(nrm_raw, 1e-4) and the norm's gradient
+// ds[a, c] = fuse_adjoint_at(dfused, a, c). Writes ds0 = ds / max(nrm_raw,
+// 1e-4) and the norm's gradient
 //   dn2[a] = -sum_c ds * s / nrm * 0.5 / nrm_raw   where nrm_raw > 1e-4, else 0.
 // Grid (L, B), ROW_THREADS threads.
 __global__ void __launch_bounds__(ROW_THREADS)
@@ -245,16 +205,7 @@ fuse_adj_norm_kernel(const float* __restrict__ dfused, const float* __restrict__
 
   float acc = 0.f;
   for (int col = threadIdx.x; col < L; col += ROW_THREADS) {
-    float f = 0.f;
-    for (int d = -1; d <= 1; ++d) {
-      const int i = a + d, j = col + d;
-      if (i < 0 || i >= L || j < 0 || j >= L) continue;
-      f += fb[(size_t)i * L + j];
-      const int ip = sigma_plus(i, wd, L), jp = sigma_plus(j, wd, L);
-      if (ip >= 0 && jp >= 0) f += fb[(size_t)ip * L + jp];
-      const int im = sigma_minus(i, wd, L), jm = sigma_minus(j, wd, L);
-      if (im >= 0 && jm >= 0) f += fb[(size_t)im * L + jm];
-    }
+    const float f = fuse_adjoint_at(fb, a, col, wd, L);
     orow[col] = f / nrm;
     acc += f * srow[col];
   }
@@ -364,7 +315,7 @@ void launch_all(const void* fd, const void* bd, const void* b_full, const void* 
   dbfull_kernel<T><<<paste_grid, GEMM_THREADS, 0, stream>>>(
       probs, dyt, static_cast<T*>(db_full), hd, wd, C);
   const dim3 sm_grid((L + SM_COLS - 1) / SM_COLS, B);
-  softmax_bwd_kernel<<<sm_grid, dim3(SM_COLS, SM_ROWS), 0, stream>>>(
+  softmax_bwd_kernel<><<<sm_grid, dim3(SM_COLS, SM_ROWS), 0, stream>>>(
       probs, mm, grad_a, L, scale);
   fuse_adj_norm_kernel<<<dim3(L, B), ROW_THREADS, 0, stream>>>(
       grad_a, s, nrm_raw, grad_b, dn2, wd, L);
@@ -378,24 +329,16 @@ void launch_all(const void* fd, const void* bd, const void* b_full, const void* 
 }  // namespace
 
 // Launches the backward on `stream` and returns cudaGetLastError() (0 on
-// success). dtype_code: 0 = float32, 1 = bfloat16 (fd, bd, b_full, dy and the
-// three outputs). grad_a, grad_b: (B, L, L) float scratch; dn2: (B, L) float
+// success). float32 fd, bd, b_full, dy and outputs: bfloat16 takes the
+// tensor-core route (attention_tc.cu). grad_a, grad_b: (B, L, L) float scratch; dn2: (B, L) float
 // scratch. Does not synchronise and allocates nothing.
 extern "C" int hv_attention_v2_backward(const void* fd, const void* bd, const void* b_full,
                                         const void* dy, const float* probs, const float* s,
                                         const float* nrm_raw, const float* mm, void* dfd,
                                         void* dbd, void* db_full, float* grad_a, float* grad_b,
                                         float* dn2, int B, int hd, int wd, int C, float scale,
-                                        int dtype_code, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1) {
-    launch_all<__nv_bfloat16>(fd, bd, b_full, dy, probs, s, nrm_raw, mm, dfd, dbd, db_full,
-                              grad_a, grad_b, dn2, B, hd, wd, C, scale, st);
-  } else if (dtype_code == 0) {
-    launch_all<float>(fd, bd, b_full, dy, probs, s, nrm_raw, mm, dfd, dbd, db_full, grad_a,
-                      grad_b, dn2, B, hd, wd, C, scale, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                                        void* stream) {
+  launch_all<float>(fd, bd, b_full, dy, probs, s, nrm_raw, mm, dfd, dbd, db_full, grad_a, grad_b,
+                    dn2, B, hd, wd, C, scale, static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,9 +5,13 @@ their plain versions, and the autograd Function that joins them.
 (healthivert_tpu/ops/attention_pallas.py:476, body `_attention_v2_kernel`
 :304-470) and `attention_v2_bwd` replaces `attention_v2_bwd` (:772, body
 `_attention_v2_bwd_kernel` :597-766), with the same arguments and results,
-in NHWC. On a CUDA tensor each launches its hand-written kernel
-(csrc/attention_v2.cu, csrc/attention_v2_bwd.cu; one library built for
-sm_90a with nvcc at first use, loaded with ctypes) or raises; on a CPU
+in NHWC. On a CUDA tensor each launches its hand-written kernel or
+raises; the dtype picks the route, with no other switch and no fallback:
+bfloat16 takes the tensor-core route (csrc/attention_tc.cu: TMA-fed wgmma
+GEMMs, channels zero-padded to a multiple of 64 and b_full and dy split
+into their 2 x 2 phase planes here), float32 the CUDA-core route
+(csrc/attention_v2.cu, csrc/attention_v2_bwd.cu). One library holds both,
+built for sm_90a with nvcc at first use and loaded with ctypes. On a CPU
 tensor each runs its plain PyTorch version (`attention_v2_reference`,
 `attention_v2_bwd_reference`), which the CPU tests hold against the JAX
 package. `AttentionV2Function` is the counterpart of the custom VJP
@@ -48,8 +52,9 @@ from .contextual_attention import (
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_v1.cu",
-           "attention_v2_ablate.cu", "attention_v2_common.cuh", "attention_v2_kernels.cuh")
+SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_tc.cu", "attention_v1.cu",
+           "attention_v2_ablate.cu", "attention_v2_common.cuh", "attention_v2_kernels.cuh",
+           "attention_tc.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -125,12 +130,22 @@ def load_library(force_build: bool = False):
             lib = ctypes.CDLL(str(info.path))
             fn = lib.hv_attention_v2_forward
             fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             fn = lib.hv_attention_v2_backward
             fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_float, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_tc_forward
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_tc_backward
+            fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             fn = lib.hv_attention_scores_paste
@@ -208,6 +223,8 @@ def attention_v2(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0,
     if fd.device.type != "cuda":
         raise ValueError(f"attention_v2: no kernel for device {fd.device}")
     _check(fd, bd, b_full, mm, hd, wd)
+    if fd.dtype == torch.bfloat16:
+        return _attention_tc(fd, bd, b_full, mm, hd, wd, scale, emit_residuals)
     lib, _ = load_library()
     bs, c = fd.shape[0], fd.shape[-1]
     num_l = hd * wd
@@ -220,8 +237,7 @@ def attention_v2(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0,
         rc = lib.hv_attention_v2_forward(
             fd.data_ptr(), bd.data_ptr(), b_full.data_ptr(), mm.data_ptr(),
             y.data_ptr(), s.data_ptr(), probs.data_ptr(), nrm_raw.data_ptr(),
-            bs, hd, wd, c, float(scale), 1 if fd.dtype == torch.bfloat16 else 0,
-            torch.cuda.current_stream(dev).cuda_stream,
+            bs, hd, wd, c, float(scale), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"attention_v2 kernel launch failed: CUDA error {rc}")
@@ -231,7 +247,80 @@ def attention_v2(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0,
     return y
 
 
-attention_v2.launches = 0  # kernel launches in this process, counted above
+attention_v2.launches = 0  # kernel launches in this process, both routes
+attention_v2.tc_launches = 0  # of which on the bf16 tensor-core route
+
+
+def tc_geometry(hd: int, wd: int):
+    """(wdp, kp) of the tensor-core route: its tiles are rectangles of the
+    grid in a padded row-major order, position (i, j) at i * wdp + j with
+    wdp = wd rounded up to a power of two >= 8 (to a multiple of 128 above
+    64), so that 64 or 128 consecutive positions are a rectangle one tensor
+    map box reads; kp = hd * wdp rounded up to 64 is the row width of its
+    (L, P) scratch planes."""
+    if wd <= 64:
+        wdp = max(8, 1 << (wd - 1).bit_length())
+    else:
+        wdp = -(-wd // 128) * 128
+    return wdp, -(-hd * wdp // 64) * 64
+
+
+def pad_channels(x, cp: int):
+    """x with its last (channel) dimension zero-padded to cp: zero channels
+    add nothing to a score or a paste, and the route cuts its outputs back
+    to the real channels."""
+    c = x.shape[-1]
+    return x if c == cp else torch.nn.functional.pad(x, (0, cp - c))
+
+
+def to_phase_planes(x, hd: int, wd: int, cp: int):
+    """(B, 2hd, 2wd, C) -> (B, 4, hd, wd, cp): plane r * 2 + t holds pixel
+    (2i + r, 2j + t), channels zero-padded to cp; one copy (and a zero fill
+    only when there are channels to pad)."""
+    bs, c = x.shape[0], x.shape[-1]
+    out = x.new_empty((bs, 4, hd, wd, cp)) if c == cp else x.new_zeros((bs, 4, hd, wd, cp))
+    out.view(bs, 2, 2, hd, wd, cp)[..., :c] = x.view(bs, hd, 2, wd, 2, c).permute(0, 2, 4, 1, 3, 5)
+    return out
+
+
+def _tc_call(name, rc):
+    if rc >= 1000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {rc - 1000}")
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _attention_tc(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
+    """attention_v2 on the bf16 tensor-core route (csrc/attention_tc.cu).
+    Serving (emit_residuals False) allocates no float32 probs."""
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    cp = -(-c // 64) * 64
+    wdp, kp = tc_geometry(hd, wd)
+    num_l = hd * wd
+    dev = fd.device
+    f32 = torch.float32
+    fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
+    bph = to_phase_planes(b_full, hd, wd, cp)
+    y = torch.empty((bs, 2 * hd, 2 * wd, c), dtype=fd.dtype, device=dev)
+    s = torch.empty((bs, num_l, num_l), dtype=f32, device=dev)
+    probs = torch.empty_like(s) if emit_residuals else None
+    nrm_raw = torch.empty((bs, num_l, 1), dtype=f32, device=dev)
+    pt_hi = torch.empty((bs, num_l, kp), dtype=torch.bfloat16, device=dev)
+    pt_lo = torch.empty_like(pt_hi)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tc_forward(
+            fd_p.data_ptr(), bd_p.data_ptr(), bph.data_ptr(), mm.data_ptr(), y.data_ptr(),
+            s.data_ptr(), None if probs is None else probs.data_ptr(), nrm_raw.data_ptr(),
+            pt_hi.data_ptr(), pt_lo.data_ptr(), bs, hd, wd, c, cp, wdp, kp, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_v2 (tensor cores)", rc)
+    attention_v2.launches += 1
+    attention_v2.tc_launches += 1
+    if emit_residuals:
+        return y, s, probs, nrm_raw
+    return y
 
 
 def attention_v2_bwd_reference(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int,
@@ -307,6 +396,8 @@ def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int
     if fd.device.type != "cuda":
         raise ValueError(f"attention_v2_bwd: no kernel for device {fd.device}")
     _check_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd)
+    if fd.dtype == torch.bfloat16:
+        return _attention_tc_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale)
     lib, _ = load_library()
     bs, c = fd.shape[0], fd.shape[-1]
     num_l = hd * wd
@@ -321,8 +412,7 @@ def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int
             probs.data_ptr(), s.data_ptr(), nrm_raw.data_ptr(), mm.data_ptr(),
             dfd.data_ptr(), dbd.data_ptr(), db_full.data_ptr(),
             grad_a.data_ptr(), grad_b.data_ptr(), dn2.data_ptr(),
-            bs, hd, wd, c, float(scale), 1 if fd.dtype == torch.bfloat16 else 0,
-            torch.cuda.current_stream(dev).cuda_stream,
+            bs, hd, wd, c, float(scale), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"attention_v2_bwd kernel launch failed: CUDA error {rc}")
@@ -330,7 +420,38 @@ def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int
     return dfd, dbd, db_full
 
 
-attention_v2_bwd.launches = 0  # kernel launches in this process, counted above
+attention_v2_bwd.launches = 0  # kernel launches in this process, both routes
+attention_v2_bwd.tc_launches = 0  # of which on the bf16 tensor-core route
+
+
+def _attention_tc_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale):
+    """attention_v2_bwd on the bf16 tensor-core route (csrc/attention_tc.cu)."""
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    cp = -(-c // 64) * 64
+    wdp, kp = tc_geometry(hd, wd)
+    num_l = hd * wd
+    dev = fd.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
+    bph, dyph = to_phase_planes(b_full, hd, wd, cp), to_phase_planes(dy, hd, wd, cp)
+    dfd, dbd, db_full = torch.empty_like(fd), torch.empty_like(bd), torch.empty_like(b_full)
+    grad = torch.empty((bs, num_l, num_l), dtype=f32, device=dev)
+    planes = [torch.empty((bs, num_l, kp), dtype=bf16, device=dev) for _ in range(4)]
+    rowsum = torch.empty((bs, num_l), dtype=f32, device=dev)
+    dn2 = torch.empty_like(rowsum)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tc_backward(
+            fd_p.data_ptr(), bd_p.data_ptr(), bph.data_ptr(), dyph.data_ptr(),
+            probs.data_ptr(), s.data_ptr(), nrm_raw.data_ptr(), mm.data_ptr(),
+            dfd.data_ptr(), dbd.data_ptr(), db_full.data_ptr(), grad.data_ptr(),
+            *(p.data_ptr() for p in planes), rowsum.data_ptr(), dn2.data_ptr(),
+            bs, hd, wd, c, cp, wdp, kp, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_v2_bwd (tensor cores)", rc)
+    attention_v2_bwd.launches += 1
+    attention_v2_bwd.tc_launches += 1
+    return dfd, dbd, db_full
 
 
 def attention_scores_paste_reference(fpat, wnorm, raw, mm, hd: int, wd: int,

@@ -1,6 +1,8 @@
 """The CUDA attention kernels (forward, backward, the v1 patch attention
 and the forward's stage ablation) against their plain PyTorch versions, on
-the card.
+the card. bf16 forward and backward run the tensor-core route
+(csrc/attention_tc.cu), float32 the CUDA-core route (csrc/attention_v2.cu,
+attention_v2_bwd.cu); the same tolerances hold both.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -96,6 +98,47 @@ def test_kernel_matches_plain(cuda_device, shape, band, dtype):
         torch.testing.assert_close(y.float(), y_r.float(), rtol=1.6e-2, atol=1e-3)
     # soft attention: the comparison is not of one-hot rows only
     assert float(p_r.amax(dim=1).min()) < 0.9
+
+
+def test_dtype_picks_the_route(cuda_device):
+    """bf16 launches the tensor-core route in both directions, float32 the
+    CUDA-core route: `launches` counts both, `tc_launches` the first."""
+    for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
+        fd, bd, b_full, mm = make_inputs(1, 8, 8, 4, "middle", dtype, cuda_device)
+        ins = [t.clone().requires_grad_(True) for t in (fd, bd, b_full)]
+        before = [attention_v2.launches, attention_v2.tc_launches,
+                  attention_v2_bwd.launches, attention_v2_bwd.tc_launches]
+        AttentionV2Function.apply(*ins, mm, 8, 8, 10.0).float().square().sum().backward()
+        torch.cuda.synchronize()
+        after = [attention_v2.launches, attention_v2.tc_launches,
+                 attention_v2_bwd.launches, attention_v2_bwd.tc_launches]
+        assert [a - b for a, b in zip(after, before)] == [1, tc, 1, tc], dtype
+
+
+@pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64"])
+def test_tensor_core_route_at_production_shapes(cuda_device, direction):
+    """The main path's shapes (32 x 32, C = 64; the forward at the 3D
+    driver's batch of 64, the backward at the recipe's 32), bf16, at the
+    tolerances above; and the backward at 64, where B * L = 65536 rows
+    pass the 65535 limit of a grid's y and z."""
+    if direction == "forward_B64":
+        fd, bd, b_full, mm = make_inputs(64, 32, 32, 64, "middle", torch.bfloat16, cuda_device)
+        y, s, probs, nrm = attention_v2(fd, bd, b_full, mm, 32, 32, 10.0, emit_residuals=True)
+        torch.cuda.synchronize()
+        y_r, s_r, p_r, n_r = attention_v2_reference(fd, bd, b_full, mm, 32, 32, 10.0, True)
+        torch.testing.assert_close(s, s_r, rtol=0, atol=2e-5)
+        torch.testing.assert_close(probs, p_r, rtol=0, atol=1e-4)
+        torch.testing.assert_close(nrm, n_r, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(y.float(), y_r.float(), rtol=1.6e-2, atol=1e-3)
+        assert float(p_r.amax(dim=1).min()) < 0.9
+    else:
+        b = int(direction.split("_B")[1])
+        args = backward_case(b, 32, 32, 64, "middle", torch.bfloat16, cuda_device)
+        got = attention_v2_bwd(*args, 32, 32, 10.0)
+        torch.cuda.synchronize()
+        want = attention_v2_bwd_reference(*args, 32, 32, 10.0)
+        for name, g, w in zip(("dfd", "dbd", "db_full"), got, want):
+            assert bwd_within(g, w, torch.bfloat16), (name, float((g.float() - w.float()).abs().max()))
 
 
 def test_launch_counter_counts_kernel_launches_only(cuda_device):
