@@ -10,13 +10,15 @@ JSON line:
                 is switched off for the float32 phases
   2. build      one nvcc process per source for sm_90a, all started
                 together (csrc/attention_v2.cu, attention_v2_bwd.cu,
-                attention_tc.cu, attention_v1.cu, attention_v2_ablate.cu),
-                linked into one library, with the -Xptxas -v register and
-                shared-memory report of each kernel; the SASS of the bf16
-                route's six GEMM kernels (cuobjdump -sass) must hold HGMMA
-                (wgmma) and UTMALDG (TMA loads); then, for comparison, the
-                seconds of one nvcc call over the same files (its library
-                thrown away)
+                attention_tc.cu, attention_v1.cu, attention_v2_ablate.cu,
+                attention_tc_ablate.cu), linked into one library, with the
+                -Xptxas -v register and shared-memory report of each kernel;
+                the SASS (cuobjdump -sass) of every tensor-core GEMM kernel,
+                the bf16 route's six and the ablation's score and paste
+                instantiations (the depth-1 ring's included), must hold
+                HGMMA (wgmma) and UTMALDG (TMA loads); then, for comparison,
+                the seconds of one nvcc call over the same files (its
+                library thrown away)
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
                 f32 (CUDA-core route) and bf16 (tensor-core route), hole
                 band in the middle, bottom and top; and odd cases (16 x 16,
@@ -49,12 +51,18 @@ JSON line:
                 kernels; then the top ten of one bf16 forward at batch 64
                 (the profiler first starts after the timed steps)
  11. ablate     the forward's stage ablation: every mode in both layouts,
-                kernel vs plain on soft attention at (2, 32, 32, 64) f32,
-                (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16, and on the
-                entry point's own inputs at its batch; then the entry point
-                (experiments/attn_ablate.main) at the 3D driver's batch of
-                64, bf16, its four entry functions and the v1 kernel each
-                launched at least once, `full`'s variants equal to it
+                kernel vs plain on soft attention at (2, 32, 32, 64) f32
+                (CUDA cores), (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16
+                (tensor cores, counted by attention_v2_ablate.tc_launches),
+                and on the entry point's own inputs at its batch; bf16
+                run(mode="full") equal to attention_v2 bit for bit; then the
+                entry point (experiments/attn_ablate.main) at the 3D
+                synthesis's batch of 64, bf16, its four entry functions and the
+                v1 kernel each launched at least once, every ablation launch
+                on the tensor-core route, `full`'s variants (ring depth 1,
+                natural layout) equal to it; the stage split its modes imply
+                beside torch.profiler's split of run(mode="full"), and no
+                CUDA-core kernel in a profiled bf16 call of every mode
  12. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
@@ -66,6 +74,7 @@ and the script exits non-zero without the last line. Run from the root of
 the repository:  python3 chip_smoke.py
 """
 
+import functools
 import json
 import re
 import subprocess
@@ -206,24 +215,37 @@ def one_call_build_seconds():
     return seconds
 
 
-# the bf16 route's GEMM kernels, by the mangled name of their instantiation
-TC_GEMMS = {"score": "lp_gemmILi0E", "dprobs": "lp_gemmILi1E", "paste": "pc_gemmILi2E",
-            "db_full": "pc_gemmILi3E", "dfd": "pc_gemmILi4E", "dbd": "pc_gemmILi5E"}
+# the tensor-core GEMM kernels, by name and template arguments: the bf16
+# route's six (attention_tc.cu; lp_gemm<0> also in attention_tc_ablate.cu,
+# for the ablation's score at ring depth 4), and the ablation's score at
+# ring depth 1 and its paste in each variant (0 full, 3 paste_bf16, 4
+# fold_norm), layout (1 natural, 2 phase planes) and ring depth
+TC_GEMMS = ({"lp_gemm<0>", "lp_gemm<1>"} | {f"pc_gemm<{k}>" for k in range(2, 6)}
+            | {"lp_gemm_sync<0>"}
+            | {f"paste_gemm<{v},{io},{ring}>" for v in (0, 3, 4)
+               for io, ring in ((1, 4), (2, 4), (2, 1))})
+GEMM_MANGLED = re.compile(r"(lp_gemm_sync|lp_gemm|pc_gemm|paste_gemm)I((?:Li\d+E)+)E")
 
 
 def tc_sass(path):
-    """HGMMA and UTMALDG counts in the SASS of each of the tensor-core
-    route's GEMM kernels; each must hold both."""
+    """HGMMA and UTMALDG counts in the SASS of each tensor-core GEMM kernel
+    (TC_GEMMS), per instantiation and translation unit; each must hold
+    both, and every instantiation must be there."""
     cuobjdump = Path(attention_cuda._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(path)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)[1:]
     found = {}
-    for name, mangled in TC_GEMMS.items():
-        bodies = [f for f in funcs if mangled in f.split("\n", 1)[0]]
-        check(len(bodies) == 1, f"build: {len(bodies)} SASS functions for {name} ({mangled})")
-        found[name] = {op: bodies[0].count(op) for op in ("HGMMA", "UTMALDG")}
-        check(all(found[name].values()), f"build: {name} SASS lacks HGMMA or UTMALDG: {found[name]}")
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        m = GEMM_MANGLED.search(body.split("\n", 1)[0])
+        if m is None:
+            continue
+        args = ",".join(re.findall(r"Li(\d+)E", m.group(2)))
+        name = f"{m.group(1)}<{args}>"
+        counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
+        check(all(counts.values()), f"build: {name} SASS lacks HGMMA or UTMALDG: {counts}")
+        found.setdefault(name, []).append(counts)
+    check(set(found) == TC_GEMMS, f"build: GEMM kernels {sorted(found)}, expected "
+          f"{sorted(TC_GEMMS)}")
     return found
 
 
@@ -354,11 +376,21 @@ def ablate_cases(batch):
            False)
 
 
+# stages of the ablation's tensor-core kernels, by a part of each kernel's
+# name (fills stand in for dropped stages); the rest is the wrapper's
+ABLATE_STAGES = (("norm", "patch_norm"), ("score", "lp_gemm"),
+                 ("fuse_softmax", "fuse_softmax_tc"), ("paste", "paste_gemm"),
+                 ("fill", "fill_kernel"))
+# the CUDA-core ablation's kernels, which no bf16 call may launch
+CUDA_CORE_KERNELS = ("score_kernel", "paste_kernel", "fuse_softmax_kernel")
+
+
 def phase_ablate(batch=64):
     """Every mode in both layouts against its plain version, then the
     ablation's entry point with the launch counts set to 0 just before it
-    and read just after. Returns its result and those counts."""
-    worst = {}
+    and read just after, then its stage split beside the profiler's.
+    Returns the entry point's result and those counts."""
+    worst, tc = {}, attn_ablate.attention_v2_ablate
     for case, hd, wd, (fd, bd, b_full, mm), soft in ablate_cases(batch):
         _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
         pmax, rmax = float(probs.max()), float(b_full.float().abs().max())
@@ -368,28 +400,60 @@ def phase_ablate(batch=64):
         for layout in LAYOUTS:
             b_in = b_full if layout == "natural" else to_phases(b_full, hd, wd)
             for mode in MODES:
+                before = tc.tc_launches
                 got = attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
                 torch.cuda.synchronize()
-                want = ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
                 name = f"{case}_{layout}_{mode}"
+                check(tc.tc_launches - before == int(fd.dtype == torch.bfloat16),
+                      f"{name}: route by dtype")
+                want = ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
                 check(got.dtype == fd.dtype and got.shape == b_in.shape,
                       f"{name}: {got.dtype} {tuple(got.shape)}")
                 ok, worst[name] = ablate_within(got, want, mode, pmax, rmax)
                 check(ok, f"{name}: err {worst[name]}")
+    g, c = attn_ablate.GRID, attn_ablate.CHANNELS
+    fd, bd, bf, mm = attn_ablate.make_inputs(batch, g, g, c, torch.bfloat16,
+                                             torch.device("cuda"), attn_ablate.SEED)
+    with torch.no_grad():
+        check(torch.equal(run(fd, bd, bf, mm, g, g), attention_v2(fd, bd, bf, mm, g, g)),
+              "ablate: bf16 run(mode='full') differs from attention_v2")
     torch.cuda.synchronize()
     for fn in ABLATE_COUNTED:
         fn.launches = 0
+    tc.tc_launches = 0
     result = attn_ablate.main([str(batch)])
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ABLATE_COUNTED}
+    tc_launches = tc.tc_launches
     check(all(n > 0 for n in launches.values()), f"ablate: a kernel was not launched: {launches}")
+    entry = sum(n for name, n in launches.items() if name != "attention_scores_paste")
+    check(tc_launches == entry, f"ablate: {tc_launches} tensor-core launches of {entry}")
     ms, errs = result["ms"], result["rel_err_vs_full"]
     check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"ablate: times {ms}")
     check(errs["auto-full"] == 0.0 and errs["fold-full"] == 0.0, f"ablate: layouts differ {errs}")
     for mode in ("paste_bf16", "fold_norm"):
         check(errs[mode] <= CANDIDATE_REL, f"ablate: {mode} rel err {errs[mode]}")
+    calls = {mode: functools.partial(run, fd, bd, bf, mm, g, g, mode=mode) for mode in MODES}
+    calls["auto-full"] = functools.partial(run_auto, fd, bd, bf, mm, g, g)
+    calls["fold-full"] = functools.partial(run_fold, fd, bd, bf, mm, g, g)
+    prof_split, seen = {}, set()
+    with torch.no_grad():
+        for name, fn in calls.items():
+            times = profile_ms(fn)
+            seen |= set(times)
+            prof_split[name] = by_stage(times, ABLATE_STAGES)
+    cuda_core = [k for k in seen if any(n in k for n in CUDA_CORE_KERNELS)]
+    check(not cuda_core, f"ablate: a bf16 call launched CUDA-core kernels {cuda_core}")
     emit("ablate", kernel_vs_plain_max_abs_err=worst, batch=batch, dtype=result["dtype"],
-         launches=launches, ms=ms, saves_ms={m: ms["full"] - ms[m] for m in MODES},
+         launches=launches, tc_launches=tc_launches, ms=ms,
+         saves_ms={m: ms["full"] - ms[m] for m in MODES},
+         stage_ms={"ablation (full minus mode, CUDA events)": result["stage_ms"],
+                   "profiler (device ms per run(mode='full'), mean of 5)": prof_split["full"]},
+         profiler_stage_ms_per_mode=prof_split,
+         ring_depth_1_minus_4_ms=ms["auto-full"] - ms["full"],
+         natural_minus_phases_ms={"vs run": ms["fold-full"] - ms["full"],
+                                  "vs run_padded": ms["fold-full"] - ms["padded-full"]},
+         kernels_of_bf16_calls=sorted(k[:80] for k in seen),
          rel_err_vs_full=errs, tolerances={"kernel_vs_plain": "y's (f32 atol, bf16 atol "
          f"and rtol {attn_ablate.Y_TOL[torch.float32][0]}, {attn_ablate.Y_TOL[torch.bfloat16]}) "
          f"+ {attn_ablate.ABLATE_REL} * max|ref|, + 2 bf16 straddles for paste_bf16",
@@ -634,19 +698,30 @@ BWD_STAGES = (("dprobs", "lp_gemm<1>"), ("split_probs", "split_rows"), ("db_full
               ("dfd", "pc_gemm<4>"), ("dbd", "pc_gemm<5>"))
 
 
-def stage_split(fn, stages, calls=5):
-    """Device ms per call of each stage over `calls` calls of fn."""
+def profile_ms(fn, calls=5):
+    """Device ms per call of each kernel over `calls` calls of fn."""
     torch.cuda.synchronize()
     with kernel_profiler() as prof:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    return kernel_ms(prof, calls)
+
+
+def by_stage(times, stages):
+    """Kernel times summed into `stages` (a part of each kernel's name) and
+    the rest (`wrapper`)."""
     split = {name: 0.0 for name, _ in stages}
     split["wrapper"] = 0.0
-    for name, ms in kernel_ms(prof, calls).items():
+    for name, ms in times.items():
         stage = next((st for st, part in stages if part in name), "wrapper")
         split[stage] += ms
     return split
+
+
+def stage_split(fn, stages, calls=5):
+    """Device ms per call of each stage over `calls` calls of fn."""
+    return by_stage(profile_ms(fn, calls), stages)
 
 
 def bound_ms(b, hd, wd, c, dtype):
@@ -842,7 +917,7 @@ def main():
                  replaces="healthivert_tpu/ops/attention_pallas.py:199",
                  launches=ablate_launches["attention_scores_paste"], **t1)]
     rows += [dict(name=f"attn_ablate.{name}",
-                  source="healthivert_tpu_torch/csrc/attention_v2_ablate.cu",
+                  source="healthivert_tpu_torch/csrc/attention_tc_ablate.cu",
                   replaces=f"experiments/attn_ablate.py:{line}",
                   launches=ablate_launches[name], **ta[name])
              for name, line in ABLATE_REPLACES.items()]

@@ -1,5 +1,6 @@
 // The tensor-core GEMM mainloop of the bf16 route of the contextual
-// attention (attention_tc.cu): one kernel template, six GEMMs.
+// attention (attention_tc.cu): one kernel template, six GEMMs, and the
+// stage ablation's variants of two of them (attention_tc_ablate.cu).
 //
 // Every operand is a bf16 tile of 64-element (128-byte) rows, loaded by TMA
 // into shared memory in the 128-byte swizzle that wgmma reads. One thread
@@ -165,21 +166,104 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "n"(TRANS_B), "r"(accumulate));
 }
 
+// As wgmma_n64 with A (64 x 16) from registers: four 32-bit registers of
+// two bf16 each, in the layout `a_frag_row` and `a_frag_col` give.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_n64_ra(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %37;\n"
+      "}\n"
+      : HV_F8(0), HV_F8(8), HV_F8(16), HV_F8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(accumulate));
+}
+
 #undef HV_F8
 
 // Row and column of accumulator register i of thread `tid` in an m64nN
 // tile: warp w owns rows 16w..16w+15; register 4j+q holds row lane/4 (+8
-// for q >= 2) and column 8j + 2 (lane % 4) (+1 for odd q).
+// for q >= 2) and column 8j + 2 (lane % 4) (+1 for odd q). A register-A
+// fragment of a 16-deep step: register q holds row lane/4 (+8 for odd q)
+// of the warp's 16 and columns 2 (lane % 4), +1 (+8 for q >= 2).
 __device__ __forceinline__ int acc_row(int tid, int i) {
   return (tid / 32) * 16 + ((i >> 1) & 1) * 8 + (tid % 32) / 4;
 }
 __device__ __forceinline__ int acc_col(int tid, int i) {
   return (i >> 2) * 8 + (tid % 4) * 2 + (i & 1);
 }
+__device__ __forceinline__ int a_frag_row(int tid, int q) {
+  return (tid / 32) * 16 + (q & 1) * 8 + (tid % 32) / 4;
+}
+__device__ __forceinline__ int a_frag_col(int tid, int q) {
+  return (q >> 1) * 8 + (tid % 4) * 2;
+}
+
+// The products of one stage (BK deep) into acc; the first product of the
+// GEMM (it == 0) overwrites the sums.
+template <class OP>
+__device__ __forceinline__ void stage_products(uint32_t st, int it, float (&acc)[OP::BN / 2]) {
+  constexpr int B_OFF = OP::NA * TILE_BYTES;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = desc_sw128(st + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
+#pragma unroll
+    for (int a = 0; a < OP::NA; ++a) {
+      const uint64_t da = desc_sw128(st + a * TILE_BYTES + kk * 32);
+      // the first product overwrites the sums: no zero fill of the
+      // registers, which would serialise the wgmma pipeline
+      const int accumulate = it > 0 || kk > 0 || a > 0;
+      if constexpr (OP::BN == 128) {
+        wgmma_n128<OP::TRANS_B>(acc, da, db, accumulate);
+      } else {
+        wgmma_n64<OP::TRANS_B>(acc, da, db, accumulate);
+      }
+    }
+  }
+}
+
+// Issues, commits and (REG_A) waits for the products of one stage. An op
+// with REG_A builds its A operand in registers from the stage's two A
+// tiles (`fragments`: the hi and lo halves of a split operand, rebuilt,
+// for each 16-deep step) and multiplies them with the B tile in shared
+// memory; the registers are rewritten for the next stage, so it waits for
+// its own products.
+template <class OP>
+__device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st,
+                                               float (&acc)[OP::BN / 2]) {
+  if constexpr (OP::REG_A) {
+    constexpr int B_OFF = OP::NA * TILE_BYTES;
+    uint32_t frag[BK / 16][2][4];
+    op.fragments(it, st, frag);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db =
+          desc_sw128(smem_u32(st) + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
+#pragma unroll
+      for (int a = 0; a < 2; ++a)
+        wgmma_n64_ra<OP::TRANS_B>(acc, frag[kk][a], db, it > 0 || kk > 0 || a > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+  } else {
+    wgmma_fence();
+    stage_products<OP>(smem_u32(st), it, acc);
+    wgmma_commit();
+  }
+}
 
 // The mainloop. OP supplies
 //   static constexpr int BN, NA (1 or 2 A tiles per stage, summed into one
 //   product: the hi and lo halves of a split operand), TRANS_B;
+//   static constexpr bool REG_A (and then void fragments(int it, const
+//   uint8_t* stage, uint32_t (&frag)[BK / 16][2][4]) const, run by every
+//   thread; see issue_products);
 //   int iters() const;
 //   void load(int it, uint8_t* a0, uint8_t* a1, uint8_t* b, uint64_t* bar) const
 //     (issues the stage's TMA loads on `bar`, thread 0 only);
@@ -217,26 +301,8 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
   for (int it = 0; it < n_it; ++it) {
     const int s = it % STAGES;
     mbar_wait(&full[s], (it / STAGES) & 1);
-    const uint32_t st = smem_u32(smem + s * STAGE_BYTES);
     fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = desc_sw128(st + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
-#pragma unroll
-      for (int a = 0; a < OP::NA; ++a) {
-        const uint64_t da = desc_sw128(st + a * TILE_BYTES + kk * 32);
-        // the first product overwrites the sums: no zero fill of the
-        // registers, which would serialise the wgmma pipeline
-        const int accumulate = it > 0 || kk > 0 || a > 0;
-        if constexpr (OP::BN == 128) {
-          wgmma_n128<OP::TRANS_B>(acc, da, db, accumulate);
-        } else {
-          wgmma_n64<OP::TRANS_B>(acc, da, db, accumulate);
-        }
-      }
-    }
-    wgmma_commit();
+    issue_products(op, it, smem + s * STAGE_BYTES, acc);
     // one group stays in flight; this warp's products of the previous one
     // are done, so it releases that stage. The stage is refilled once all
     // four warps have released it: wait_group orders only its own warp.
@@ -253,6 +319,43 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
   }
   wgmma_wait<0>();
   fence_acc(acc);
+}
+
+// The mainloop at ring depth 1: synchronous loads. Each iteration loads its
+// stage, waits for it, runs its products and waits for them
+// (wgmma_wait<0>), and the warpgroup meets before the next load overwrites
+// the stage: no load overlaps a product. (`mainloop` with STAGES = 1 would
+// deadlock: it refills a stage one iteration late, after the next `full`
+// wait.) The products are `mainloop`'s, in the same order, so the sums are
+// bit-equal. The kernel keeps the ring's shared-memory request, so that the
+// blocks an SM holds, and with them the latency other blocks hide, stay the
+// same.
+template <class OP>
+__device__ __forceinline__ void mainloop_sync(const OP& op, float (&acc)[OP::BN / 2]) {
+  constexpr int B_OFF = OP::NA * TILE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full;
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x;
+  const int n_it = op.iters();
+
+  if (tid == 0) {
+    mbar_init(&full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  for (int it = 0; it < n_it; ++it) {
+    if (tid == 0) {
+      mbar_expect_tx(&full, op.stage_bytes());
+      op.load(it, smem, smem + TILE_BYTES, smem + B_OFF, &full);
+    }
+    mbar_wait(&full, it & 1);
+    fence_acc(acc);
+    issue_products(op, it, smem, acc);
+    wgmma_wait<0>();
+    fence_acc(acc);
+    __syncthreads();
+  }
 }
 
 // Shift (sy, sx) and phase plane of tap `tap` of each GEMM.

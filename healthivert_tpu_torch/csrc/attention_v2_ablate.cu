@@ -1,7 +1,9 @@
 // Stage ablation of the contextual-attention forward for Hopper (sm_90a),
-// with a plain C interface.
+// float32 (the CUDA-core route), with a plain C interface.
 //
-// Replaces the Pallas TPU kernels of the JAX package's timing ablation,
+// Replaces, for float32 inputs (bf16 takes attention_tc_ablate.cu, as the
+// bf16 forward takes the tensor-core route), the Pallas TPU kernels of the
+// JAX package's timing ablation,
 // experiments/attn_ablate.py: `run` (:247) and `run_padded` (:289) over
 // `_kernel` (:52-243), `run_auto` (:466) over `_kernel_auto` (:326-462) and
 // `run_fold` (:657) over `_kernel_fold` (:504-653). Each runs the forward of
@@ -18,7 +20,7 @@
 // and `layout` picks how b_full comes in and y goes out: natural
 // (B, 2hd, 2wd, C), or the 2 x 2 phase planes (B, 2, 2, hd, wd, C) that
 // the TPU wrapper built with a transpose. The forward's own launch in
-// attention_v2.cu is the natural layout in mode full, and stays as it was.
+// attention_v2.cu is the natural layout in mode full.
 // healthivert_tpu_torch/experiments/attn_ablate.py holds the wrappers and
 // the plain PyTorch version of every mode.
 //
@@ -122,19 +124,12 @@ int dispatch(const Operands& a, int mode, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_layout(const Operands& a, int mode, int layout, cudaStream_t stream) {
-  if (layout == kNatural) return dispatch<T, kNatural>(a, mode, stream);
-  if (layout == kPhases) return dispatch<T, kPhases>(a, mode, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 }  // namespace
 
 // Launches one mode of the ablation on `stream` and returns
-// cudaGetLastError() (0 on success). dtype_code: 0 = float32, 1 = bfloat16
-// (fd, bd, b_in and y); mode: the index into MODES; layout: 0 = natural,
-// 1 = phases. Does not synchronise and allocates nothing: y and the scratch
+// cudaGetLastError() (0 on success). fd, bd, b_in and y float32; mode: the
+// index into MODES; layout: 0 = natural, 1 = phases. Does not synchronise and allocates nothing: y and the scratch
 // come from the caller, each NULL where the mode launches no stage that
 // uses it: s, probs (B, L, L) float (all but floor); nrm_raw (B, L) float
 // (all but floor and no_score); probs16 (B, L, L) bf16 (paste_bf16);
@@ -142,12 +137,12 @@ int dispatch_layout(const Operands& a, int mode, int layout, cudaStream_t stream
 extern "C" int hv_attention_v2_ablate(const void* fd, const void* bd, const void* b_in,
                                       const float* mm, void* y, float* s, float* probs,
                                       void* probs16, float* col_inv, float* nrm_raw, int B,
-                                      int hd, int wd, int C, float scale, int dtype_code,
-                                      int mode, int layout, void* stream) {
+                                      int hd, int wd, int C, float scale, int mode, int layout,
+                                      void* stream) {
   const Operands a{fd, bd, b_in, mm, y, s, probs, static_cast<__nv_bfloat16*>(probs16),
                    col_inv, nrm_raw, B, hd, wd, C, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 1) return dispatch_layout<__nv_bfloat16>(a, mode, layout, st);
-  if (dtype_code == 0) return dispatch_layout<float>(a, mode, layout, st);
+  if (layout == kNatural) return dispatch<float, kNatural>(a, mode, st);
+  if (layout == kPhases) return dispatch<float, kPhases>(a, mode, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

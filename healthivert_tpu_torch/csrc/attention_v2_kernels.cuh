@@ -12,7 +12,8 @@ namespace hv_attn {
 
 // Variants of the softmax (3) and paste (4) stages, chosen at compile time.
 // kFull is the forward's own; the others serve the stage ablation
-// (attention_v2_ablate.cu) and put no branch into the forward's kernels.
+// (attention_v2_ablate.cu, and the tensor-core route's sweep in
+// attention_tc_kernels.cuh) and put no branch into the forward's kernels.
 enum StageMode : int {
   kFull = 0,   // fused scores, gated softmax, probs = e / sum * g
   kNoFuse,     // the softmax of the unfused scores

@@ -6,19 +6,29 @@ that the differences give each stage's cost (the numerics of a dropped
 stage are meaningless; only its time counts), plus two candidate designs
 that must match `full`:
 
-  full         the forward as it ships (csrc/attention_v2.cu's four stages)
+  full         the forward as it ships
   no_score     s = 0.5 everywhere, no norm and no score GEMM -> score cost
   no_fuse      the softmax of the unfused scores          -> fuse cost
   no_softmax   probs = the fused scores as they stand     -> softmax cost
   no_paste     y = 0, no paste GEMM                       -> paste cost
-  paste_bf16   CANDIDATE: probs and b_full rounded to bf16 for the paste,
-               sums in float32 (even for float32 inputs)
+  paste_bf16   CANDIDATE: probs rounded once to bf16 for the paste (on the
+               tensor-core route: the hi plane alone, one product in place
+               of the hi/lo pair; on the CUDA cores: probs and b_full
+               rounded to bf16, sums in float32)
   fold_norm    CANDIDATE: the softmax stores exp * g unnormalised, and each
                probs column's 1/sum scales it as the paste loads it
   floor        y = 0 and nothing else: the launch floor
 
-The kernels are csrc/attention_v2_ablate.cu, the mode a compile-time
-switch. Its four entry functions keep the JAX names and arguments, minus
+The dtype picks the design, as it does for `attention_v2`:
+  bfloat16  the tensor-core route, csrc/attention_tc_ablate.cu: the
+            kernels of csrc/attention_tc.cu (TMA-fed wgmma score and paste
+            GEMMs, the fuse + softmax sweep writing probs split hi/lo), each
+            mode an instantiation; channels zero-padded to 64 here (no copy
+            at C = 64). `full` equals `attention_v2` bit for bit.
+  float32   the CUDA-core route, csrc/attention_v2_ablate.cu: the kernels of
+            csrc/attention_v2.cu, the mode a compile-time switch.
+No switch and no fallback: a bf16 launch the tensor-core route refuses
+raises. Its four entry functions keep the JAX names and arguments, minus
 the TPU-only channel padding to 128 lanes and its lane packing:
 
   run         the wrapper's layout work in PyTorch (b_full split into its
@@ -26,16 +36,19 @@ the TPU-only channel padding to 128 lanes and its lane packing:
               kernel in the phase layout: wrapper cost included
   run_padded  the phase-layout kernel alone on operands built beforehand:
               wrapper cost excluded
-  run_fold    the natural-layout kernel: the phase split and the interleave
-              are its own index arithmetic, with no wrapper layout work
+  run_fold    the natural-layout kernel: no wrapper layout work. On the
+              tensor-core route its paste reads b_full through a tensor map
+              with element stride 2 (every second row, one column phase)
   run_auto    on the TPU, `run` with Mosaic's automatic double-buffered
-              block pipeline in place of manual DMAs. This simple kernel
-              has neither, so here it is `run`'s launch; the forward's
-              redesign gives it its Hopper meaning (cp.async or TMA
-              double-buffered tile loads)
+              block pipeline in place of manual DMAs. On the tensor-core
+              route: `run` with every GEMM's TMA ring at depth 1 (each tile
+              loaded, waited for and multiplied before the next load), so
+              that auto - full is what the 4-stage ring buys. The CUDA-core
+              kernels have no ring: there it is `run`'s launch
 
 On a CUDA tensor each launches the kernel or raises, and counts its
-launches in `.launches`; on a CPU tensor it runs the plain PyTorch version
+launches in `.launches` (`attention_v2_ablate.tc_launches` counts those on
+the tensor-core route); on a CPU tensor it runs the plain PyTorch version
 of the mode (`ablate_reference`). `main` also times the v1 kernel
 (`attention_scores_paste`, patch tensors built beforehand) against `full`.
 
@@ -53,8 +66,11 @@ import torch
 
 from ..ops.attention_cuda import (
     _check,
+    _tc_call,
     attention_scores_paste,
     load_library,
+    pad_channels,
+    tc_geometry,
     v1_fold,
     v1_patches,
 )
@@ -64,6 +80,11 @@ from ..utils.device import resolve_device
 MODES = ("full", "no_score", "no_fuse", "no_softmax", "no_paste",
          "paste_bf16", "fold_norm", "floor")
 LAYOUTS = ("natural", "phases")
+# each stage's cost is full's time minus that of the mode without it
+STAGE_MODES = {"score": "no_score", "fuse": "no_fuse", "softmax": "no_softmax",
+               "paste": "no_paste"}
+# the tensor-core route's TMA ring depths: the forward's, and run_auto's
+RING, RING_SYNC = 4, 1
 # main's setting, the JAX main's: a 32 x 32 grid of 64 channels in bf16,
 # seed 0, and timing windows of 10 calls
 GRID, CHANNELS, DTYPE, SEED, REPS = 32, 64, torch.bfloat16, 0, 10
@@ -161,43 +182,91 @@ def _check_ablate(fd, bd, b_in, mm, hd, wd, mode, layout):
 
 
 def attention_v2_ablate(fd, bd, b_in, mm, hd: int, wd: int, scale: float = 10.0,
-                        mode: str = "full", layout: str = "natural"):
+                        mode: str = "full", layout: str = "natural", ring: int = RING):
     """One mode of the forward in one layout: the kernel on a CUDA tensor
     (uncounted; the entry functions below count), the plain version on a
     CPU tensor. b_in is b_full (natural) or its phase planes (phases); the
-    result has b_in's shape and fd's dtype."""
+    result has b_in's shape and fd's dtype. ring: the tensor-core route's
+    TMA ring depth, RING or RING_SYNC (phase layout only); the CUDA-core
+    route takes RING alone."""
     if fd.device.type == "cpu":
         return ablate_layout_reference(fd, bd, b_in, mm, hd, wd, scale, mode, layout)
     if fd.device.type != "cuda":
         raise ValueError(f"attention_v2_ablate: no kernel for device {fd.device}")
     _check_ablate(fd, bd, b_in, mm, hd, wd, mode, layout)
+    if ring not in (RING, RING_SYNC):
+        raise ValueError(f"attention_v2_ablate: ring {ring} is not {RING} or {RING_SYNC}")
+    if fd.dtype == torch.bfloat16:
+        return _ablate_tc(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring)
+    if ring != RING:
+        raise ValueError("attention_v2_ablate: the float32 (CUDA-core) route has no TMA ring")
     lib, _ = load_library()
     bs, c = fd.shape[0], fd.shape[-1]
     num_l = hd * wd
     dev = fd.device
     f32 = torch.float32
     y = torch.empty_like(b_in)
-    # scratch only for the stages the mode launches: floor fills y alone,
-    # no_score fills s in place of the norm and score stages
-    def scratch(shape, dtype, used):
-        return torch.empty(shape, dtype=dtype, device=dev) if used else None
-
-    s = scratch((bs, num_l, num_l), f32, mode != "floor")
-    probs = scratch((bs, num_l, num_l), f32, mode != "floor")
-    probs16 = scratch((bs, num_l, num_l), torch.bfloat16, mode == "paste_bf16")
-    col_inv = scratch((bs, num_l), f32, mode == "fold_norm")
-    nrm_raw = scratch((bs, num_l), f32, mode not in ("floor", "no_score"))
-    ptr = lambda t: None if t is None else t.data_ptr()
+    s = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
+    probs = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
+    probs16 = _scratch((bs, num_l, num_l), torch.bfloat16, dev, mode == "paste_bf16")
+    col_inv = _scratch((bs, num_l), f32, dev, mode == "fold_norm")
+    nrm_raw = _scratch((bs, num_l), f32, dev, mode not in ("floor", "no_score"))
     with torch.cuda.device(dev):
         rc = lib.hv_attention_v2_ablate(
             fd.data_ptr(), bd.data_ptr(), b_in.data_ptr(), mm.data_ptr(), y.data_ptr(),
-            ptr(s), ptr(probs), ptr(probs16), ptr(col_inv), ptr(nrm_raw),
-            bs, hd, wd, c, float(scale), 1 if fd.dtype == torch.bfloat16 else 0,
-            MODES.index(mode), LAYOUTS.index(layout),
+            _ptr(s), _ptr(probs), _ptr(probs16), _ptr(col_inv), _ptr(nrm_raw),
+            bs, hd, wd, c, float(scale), MODES.index(mode), LAYOUTS.index(layout),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"attention_v2_ablate kernel launch failed: CUDA error {rc}")
+    return y
+
+
+attention_v2_ablate.tc_launches = 0  # launches on the bf16 tensor-core route
+
+
+def _scratch(shape, dtype, device, used):
+    """Scratch only for the stages the mode launches (floor fills y alone,
+    no_score fills s in place of the norm and score stages): None else."""
+    return torch.empty(shape, dtype=dtype, device=device) if used else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _ablate_tc(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring):
+    """attention_v2_ablate on the bf16 tensor-core route
+    (csrc/attention_tc_ablate.cu): no float32 probs; the paste's operand
+    probsT in hi and lo bf16 planes (hi alone for paste_bf16)."""
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    cp = -(-c // 64) * 64
+    wdp, kp = tc_geometry(hd, wd)
+    num_l = hd * wd
+    dev = fd.device
+    f32, bf16 = torch.float32, torch.bfloat16
+    fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
+    if layout == "natural":
+        b_op = pad_channels(b_in, cp)
+    else:
+        b_op = pad_channels(b_in.view(bs, 4, hd, wd, c), cp)
+    y = torch.empty_like(b_in)
+    s = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
+    nrm_raw = _scratch((bs, num_l), f32, dev, mode not in ("floor", "no_score"))
+    pt_hi = _scratch((bs, num_l, kp), bf16, dev, mode != "floor")
+    pt_lo = _scratch((bs, num_l, kp), bf16, dev, mode not in ("floor", "paste_bf16"))
+    col_inv = _scratch((bs, num_l), f32, dev, mode == "fold_norm")
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tc_ablate(
+            fd_p.data_ptr(), bd_p.data_ptr(), b_op.data_ptr(), mm.data_ptr(), y.data_ptr(),
+            _ptr(s), _ptr(nrm_raw), _ptr(pt_hi), _ptr(pt_lo), _ptr(col_inv),
+            bs, hd, wd, c, cp, wdp, kp, float(scale), MODES.index(mode),
+            LAYOUTS.index(layout), ring, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_v2_ablate (tensor cores)", rc)
+    attention_v2_ablate.tc_launches += 1
     return y
 
 
@@ -223,11 +292,12 @@ def run_padded(fd, bd, bph, mm, hd: int, wd: int, scale: float = 10.0, mode: str
 
 
 def run_auto(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0, mode: str = "full"):
-    """JAX `run_auto` (:466): `run`'s function. Its TPU meaning (Mosaic's
-    automatic block pipeline in place of manual DMAs) has no counterpart in
-    this simple kernel, so it is `run`'s launch, counted here."""
+    """JAX `run_auto` (:466): `run`'s function with each GEMM's TMA ring at
+    depth 1 on the tensor-core route (bf16); `run`'s launch on the CUDA
+    cores (float32), which have no ring. Returns y (B, 2hd, 2wd, C)."""
+    ring = RING_SYNC if fd.dtype == torch.bfloat16 else RING
     out = attention_v2_ablate(fd, bd, to_phases(b_full, hd, wd), mm, hd, wd, scale, mode,
-                              "phases")
+                              "phases", ring)
     if out.is_cuda:
         run_auto.launches += 1
     return from_phases(out)
@@ -326,20 +396,23 @@ def main(argv=None) -> dict:
     with torch.no_grad():
         for mode in MODES:
             ms[mode] = best_ms(lambda: run(fd, bd, bf, mm, hd, wd, mode=mode), dev)
-            saves = f"  (saves {ms['full'] - ms[mode]:5.2f} ms)" if mode != "full" else ""
-            print(f"{mode:12s} {ms[mode]:7.2f} ms{saves}", flush=True)
+            saves = f"  (saves {ms['full'] - ms[mode]:6.3f} ms)" if mode != "full" else ""
+            print(f"{mode:12s} {ms[mode]:7.3f} ms{saves}", flush=True)
+        out["stage_ms"] = {st: ms["full"] - ms[m] for st, m in STAGE_MODES.items()}
+        print("stage split (full minus the mode without it): " + ", ".join(
+            f"{st} {v:.3f} ms" for st, v in out["stage_ms"].items()), flush=True)
 
         bph = to_phases(bf, hd, wd)
         for mode in ("full", "floor"):
             ms[f"padded-{mode}"] = best_ms(
                 lambda: run_padded(fd, bd, bph, mm, hd, wd, mode=mode), dev)
-            print(f"padded-{mode:7s} {ms[f'padded-{mode}']:7.2f} ms  (wrapper excluded)",
+            print(f"padded-{mode:7s} {ms[f'padded-{mode}']:7.3f} ms  (wrapper excluded)",
                   flush=True)
 
         for mode in ("full", "floor"):
             ms[f"auto-{mode}"] = best_ms(
                 lambda: run_auto(fd, bd, bf, mm, hd, wd, mode=mode), dev)
-            print(f"auto-{mode:7s} {ms[f'auto-{mode}']:7.2f} ms  (run's launch on this card)",
+            print(f"auto-{mode:7s} {ms[f'auto-{mode}']:7.3f} ms  (TMA ring depth 1)",
                   flush=True)
         y0 = run(fd, bd, bf, mm, hd, wd, mode="full")
         errs["auto-full"] = rel_err(run_auto(fd, bd, bf, mm, hd, wd, mode="full"), y0)
@@ -352,7 +425,7 @@ def main(argv=None) -> dict:
         for mode in ("full", "floor"):
             ms[f"fold-{mode}"] = best_ms(
                 lambda: run_fold(fd, bd, bf, mm, hd, wd, mode=mode), dev)
-            print(f"fold-{mode:7s} {ms[f'fold-{mode}']:7.2f} ms  (in-kernel phases)",
+            print(f"fold-{mode:7s} {ms[f'fold-{mode}']:7.3f} ms  (natural layout)",
                   flush=True)
         errs["fold-full"] = rel_err(run_fold(fd, bd, bf, mm, hd, wd, mode="full"), y0)
         print(f"fold-full: rel max err vs full = {errs['fold-full']:.4g}", flush=True)

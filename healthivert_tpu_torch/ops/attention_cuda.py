@@ -19,9 +19,9 @@ package. `AttentionV2Function` is the counterpart of the custom VJP
 Pallas kernel `attention_scores_paste` (:199, body `_attention_kernel`
 :98-195), which works on patch tensors built beforehand
 (csrc/attention_v1.cu; plain version `attention_scores_paste_reference`).
-The library also holds the forward's stage ablation
-(csrc/attention_v2_ablate.cu), whose wrappers live in
-`healthivert_tpu_torch.experiments.attn_ablate`.
+The library also holds the forward's stage ablation on both routes
+(csrc/attention_tc_ablate.cu for bf16, csrc/attention_v2_ablate.cu for
+float32), whose wrappers live in `healthivert_tpu_torch.experiments.attn_ablate`.
 
 Each kernel's source note says what bounds it on an H100 and what its
 design does about it.
@@ -53,8 +53,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_tc.cu", "attention_v1.cu",
-           "attention_v2_ablate.cu", "attention_v2_common.cuh", "attention_v2_kernels.cuh",
-           "attention_tc.cuh")
+           "attention_v2_ablate.cu", "attention_tc_ablate.cu", "attention_v2_common.cuh",
+           "attention_v2_kernels.cuh", "attention_tc.cuh", "attention_tc_kernels.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -155,6 +155,11 @@ def load_library(force_build: bool = False):
             fn.restype = ctypes.c_int
             fn = lib.hv_attention_v2_ablate
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_tc_ablate
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int

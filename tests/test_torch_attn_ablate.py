@@ -4,9 +4,11 @@ The JAX package's experiments/attn_ablate.py runs its Pallas kernels with no
 `interpret` switch, so a fixture here patches
 `jax.experimental.pallas.pallas_call` to add `interpret=True` before any of
 them is traced; `run` and its siblings are jitted, and a trace without the
-patch would pin the TPU variant in their compile cache. No other test file
-calls them. Importing that module also points JAX's persistent compile
-cache at a directory of its own; the import here puts the setting back.
+patch would pin the TPU variant in their compile cache.
+tests/test_torch_attn_ablate_tc.py, the only other file that calls them,
+patches it the same way. Importing that module also points JAX's
+persistent compile cache at a directory of its own; the import here puts
+the setting back.
 
 Each of the port's entry functions (`run`, `run_padded`, `run_auto`,
 `run_fold`) runs its plain version on a CPU tensor and is held against the

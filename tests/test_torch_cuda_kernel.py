@@ -1,8 +1,9 @@
 """The CUDA attention kernels (forward, backward, the v1 patch attention
 and the forward's stage ablation) against their plain PyTorch versions, on
-the card. bf16 forward and backward run the tensor-core route
-(csrc/attention_tc.cu), float32 the CUDA-core route (csrc/attention_v2.cu,
-attention_v2_bwd.cu); the same tolerances hold both.
+the card. bf16 forward, backward and ablation run the tensor-core route
+(csrc/attention_tc.cu, attention_tc_ablate.cu), float32 the CUDA-core route
+(csrc/attention_v2.cu, attention_v2_bwd.cu, attention_v2_ablate.cu); the
+same tolerances hold both.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -273,14 +274,19 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("layout", attn_ablate.LAYOUTS)
 @pytest.mark.parametrize("mode", attn_ablate.MODES)
-@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20)],
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20), (1, 3, 70, 8)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_ablate_kernel_matches_plain(cuda_device, shape, mode, layout, dtype):
+    """bf16 runs the tensor-core route (channels padded to 64 at C = 20 and
+    8; 70 columns in a 128-wide position order), float32 the CUDA cores."""
     b, hd, wd, c = shape
     fd, bd, b_full, mm = make_inputs(b, hd, wd, c, "bottom", dtype, cuda_device)
     b_in = b_full if layout == "natural" else attn_ablate.to_phases(b_full, hd, wd)
+    before = attn_ablate.attention_v2_ablate.tc_launches
     got = attn_ablate.attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
     torch.cuda.synchronize()
+    tc = int(dtype == torch.bfloat16)
+    assert attn_ablate.attention_v2_ablate.tc_launches == before + tc
     want = attn_ablate.ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
     assert got.dtype == dtype and got.shape == b_in.shape
     _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
@@ -303,3 +309,56 @@ def test_ablate_entry_functions_count_their_launches(cuda_device):
     torch.testing.assert_close(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8), rtol=0, atol=0)
     with pytest.raises(ValueError):  # b_full in the phase layout's place
         attn_ablate.run_padded(fd, bd, b_full, mm, 8, 8)
+
+
+@pytest.mark.parametrize("mode", attn_ablate.MODES)
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ablate_tc_entry_functions_are_bit_equal(cuda_device, shape, mode):
+    """The bf16 twin of the test above: the four entry functions launch the
+    tensor-core route once each and count it; the phase layout, the
+    natural layout (b_full through the stride-2 tensor map) and the depth-1
+    ring (run_auto) run the same products in the same order, so every mode's
+    outputs are bit-equal; and run(mode="full") is attention_v2."""
+    b, hd, wd, c = shape
+    fd, bd, b_full, mm = make_inputs(b, hd, wd, c, "middle", torch.bfloat16, cuda_device)
+    bph = attn_ablate.to_phases(b_full, hd, wd)
+    fns = (attn_ablate.run, attn_ablate.run_padded, attn_ablate.run_auto, attn_ablate.run_fold)
+    before = [f.launches for f in fns] + [attn_ablate.attention_v2_ablate.tc_launches]
+    outs = [f(fd, bd, bph if f is attn_ablate.run_padded else b_full, mm, hd, wd, mode=mode)
+            for f in fns]
+    torch.cuda.synchronize()
+    after = [f.launches for f in fns] + [attn_ablate.attention_v2_ablate.tc_launches]
+    assert [a - n for a, n in zip(after, before)] == [1, 1, 1, 1, 4]
+    outs[1] = attn_ablate.from_phases(outs[1])
+    for name, y in zip(("run_padded", "run_auto", "run_fold"), outs[1:]):
+        assert torch.equal(y, outs[0]), (name, float((y.float() - outs[0].float()).abs().max()))
+    if mode == "full":
+        assert torch.equal(outs[0], attention_v2(fd, bd, b_full, mm, hd, wd))
+
+
+def test_ablate_tc_raises_where_the_route_cannot_go(cuda_device):
+    """A bf16 launch the tensor-core route refuses raises and counts no
+    launch; it does not drop to the CUDA cores, which would take each of
+    these. TMA reads from 16-byte aligned addresses only: b_full two bytes
+    off (C = 64, so the wrapper passes it on uncopied) fails to make its
+    tensor map, in the natural layout and the phase layout alike."""
+    fd, bd, b_full, mm = make_inputs(1, 8, 8, 64, "middle", torch.bfloat16, cuda_device)
+    ab = attn_ablate.attention_v2_ablate
+    before = (ab.tc_launches, attn_ablate.run.launches)
+    for layout in attn_ablate.LAYOUTS:
+        b_in = b_full if layout == "natural" else attn_ablate.to_phases(b_full, 8, 8)
+        off = torch.empty(b_in.numel() + 1, dtype=b_in.dtype, device=b_in.device)[1:]
+        off = off.view(b_in.shape).copy_(b_in)
+        assert off.is_contiguous() and off.data_ptr() % 16 != 0
+        with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+            ab(fd, bd, off, mm, 8, 8, 10.0, "full", layout)
+    with pytest.raises(RuntimeError):  # the depth-1 ring has the phase layout only
+        ab(fd, bd, b_full, mm, 8, 8, 10.0, "full", "natural", attn_ablate.RING_SYNC)
+    with pytest.raises(ValueError):  # no ring of depth 2
+        ab(fd, bd, b_full, mm, 8, 8, 10.0, "full", "natural", 2)
+    with pytest.raises(ValueError):  # the CUDA cores have no ring
+        ab(fd.float(), bd.float(), b_full.float(), mm, 8, 8, 10.0, "full", "natural",
+           attn_ablate.RING_SYNC)
+    torch.cuda.synchronize()
+    assert (ab.tc_launches, attn_ablate.run.launches) == before
