@@ -10,11 +10,12 @@ JSON line:
                 is switched off for the float32 phases
   2. build      one nvcc process per source for sm_90a, all started
                 together (csrc/attention_v2.cu, attention_v2_bwd.cu,
-                attention_tc.cu, attention_v1.cu, attention_v2_ablate.cu,
-                attention_tc_ablate.cu), linked into one library, with the
-                -Xptxas -v register and shared-memory report of each kernel;
-                the SASS (cuobjdump -sass) of every tensor-core GEMM kernel,
-                the bf16 route's six and the ablation's score and paste
+                attention_tc.cu, attention_v1.cu, attention_tc_v1.cu,
+                attention_v2_ablate.cu, attention_tc_ablate.cu), linked into
+                one library, with the -Xptxas -v register and shared-memory
+                report of each kernel; the SASS (cuobjdump -sass) of every
+                tensor-core GEMM kernel, the bf16 route's six, v1's score
+                and paste, and the ablation's score and paste
                 instantiations (the depth-1 ring's included), must hold
                 HGMMA (wgmma) and UTMALDG (TMA loads); then, for comparison,
                 the seconds of one nvcc call over the same files (its
@@ -29,7 +30,10 @@ JSON line:
                 dfd, dbd, db_full
   5. kernel_v1  attention_scores_paste (v1) kernel vs plain version on the
                 patch tensors of the same cases at production shapes (K =
-                576, RC = 1024), plus 6 x 10, C=20 (K = 180, RC = 320)
+                576, RC = 1024), plus 6 x 10, C=20 (K = 180, padded to 192
+                on the tensor cores; RC = 320) and B=64, bf16; bf16 on the
+                tensor-core route (counted by tc_launches), f32 on the CUDA
+                cores
   6. fwd_f32    generator_forward on the card (kernel) against the port's
                 CPU path (plain version), batch 2, float32
   7. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
@@ -60,14 +64,20 @@ JSON line:
                 synthesis's batch of 64, bf16, its four entry functions and the
                 v1 kernel each launched at least once, every ablation launch
                 on the tensor-core route, `full`'s variants (ring depth 1,
-                natural layout) equal to it; the stage split its modes imply
-                beside torch.profiler's split of run(mode="full"), and no
-                CUDA-core kernel in a profiled bf16 call of every mode
+                natural layout) equal to it, its v1 launches all on the
+                tensor-core route; the stage split its modes imply beside
+                torch.profiler's split of run(mode="full"), and no CUDA-core
+                kernel in a profiled bf16 call of every mode and of v1
  12. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
-                (kernel ms from the ablation's own timing); the forward's
-                and the backward's device time per stage (torch.profiler)
+                (kernel ms from the ablation's own timing); the forward's,
+                the backward's and v1's device time per stage
+                (torch.profiler); then the float32 (CUDA-core) route of the
+                forward, the backward, v1 and run(mode="full") at the same
+                shapes, each with its float32 bound (67 TFLOP/s, the CUDA
+                cores) and the 3xTF32 bound (495 / 3 TFLOP/s) beside it, and
+                its device time per kernel
 
 then the `kernels` line, and last the device line. Any failed check raises
 and the script exits non-zero without the last line. Run from the root of
@@ -123,6 +133,8 @@ RECIPE = Path(__file__).resolve().parent / "checkpoints" / "pretrained_synthetic
 # HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+# a float32 product as three TF32 tensor-core products (hi hi, hi lo, lo hi)
+PEAK_3XTF32 = 495e12 / 3
 
 # kernel vs plain tolerances: the same float32 arithmetic in another order
 # of sums, and another exp in the softmax; y in bf16 within two bf16 ulps
@@ -217,14 +229,15 @@ def one_call_build_seconds():
 
 # the tensor-core GEMM kernels, by name and template arguments: the bf16
 # route's six (attention_tc.cu; lp_gemm<0> also in attention_tc_ablate.cu,
-# for the ablation's score at ring depth 4), and the ablation's score at
-# ring depth 1 and its paste in each variant (0 full, 3 paste_bf16, 4
-# fold_norm), layout (1 natural, 2 phase planes) and ring depth
+# for the ablation's score at ring depth 4), v1's score and paste
+# (attention_tc_v1.cu), and the ablation's score at ring depth 1 and its
+# paste in each variant (0 full, 3 paste_bf16, 4 fold_norm), layout (1
+# natural, 2 phase planes) and ring depth
 TC_GEMMS = ({"lp_gemm<0>", "lp_gemm<1>"} | {f"pc_gemm<{k}>" for k in range(2, 6)}
-            | {"lp_gemm_sync<0>"}
+            | {"v1_gemm<0>", "v1_gemm<1>", "lp_gemm_sync<0>"}
             | {f"paste_gemm<{v},{io},{ring}>" for v in (0, 3, 4)
                for io, ring in ((1, 4), (2, 4), (2, 1))})
-GEMM_MANGLED = re.compile(r"(lp_gemm_sync|lp_gemm|pc_gemm|paste_gemm)I((?:Li\d+E)+)E")
+GEMM_MANGLED = re.compile(r"(lp_gemm_sync|lp_gemm|pc_gemm|paste_gemm|v1_gemm)I((?:Li\d+E)+)E")
 
 
 def tc_sass(path):
@@ -339,13 +352,18 @@ def phase_kernel_bwd():
 def phase_kernel_v1():
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
-    cases += [(1, 6, 10, 20, "bottom", torch.float32), (1, 6, 10, 20, "top", torch.bfloat16)]
+    cases += [(1, 6, 10, 20, "bottom", torch.float32), (1, 6, 10, 20, "top", torch.bfloat16),
+              (64, 32, 32, 64, "middle", torch.bfloat16)]
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dt)
         patches = v1_patches(fd, bd, b_full)
+        before = (attention_scores_paste.launches, attention_scores_paste.tc_launches)
         vals = attention_scores_paste(*patches, mm, hd, wd, 10.0)
         torch.cuda.synchronize()
+        check((attention_scores_paste.launches, attention_scores_paste.tc_launches)
+              == (before[0] + 1, before[1] + int(dt == torch.bfloat16)),
+              f"kernel_v1 B{b}_{hd}x{wd}_C{c}: route by dtype")
         want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
         _, _, p_r, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
         name = f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}"
@@ -420,14 +438,18 @@ def phase_ablate(batch=64):
     torch.cuda.synchronize()
     for fn in ABLATE_COUNTED:
         fn.launches = 0
-    tc.tc_launches = 0
+    tc.tc_launches = attention_scores_paste.tc_launches = 0
     result = attn_ablate.main([str(batch)])
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ABLATE_COUNTED}
     tc_launches = tc.tc_launches
+    v1_tc_launches = attention_scores_paste.tc_launches
     check(all(n > 0 for n in launches.values()), f"ablate: a kernel was not launched: {launches}")
     entry = sum(n for name, n in launches.items() if name != "attention_scores_paste")
     check(tc_launches == entry, f"ablate: {tc_launches} tensor-core launches of {entry}")
+    check(v1_tc_launches == launches["attention_scores_paste"],
+          f"ablate: {v1_tc_launches} v1 tensor-core launches of "
+          f"{launches['attention_scores_paste']}")
     ms, errs = result["ms"], result["rel_err_vs_full"]
     check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"ablate: times {ms}")
     check(errs["auto-full"] == 0.0 and errs["fold-full"] == 0.0, f"ablate: layouts differ {errs}")
@@ -442,10 +464,12 @@ def phase_ablate(batch=64):
             times = profile_ms(fn)
             seen |= set(times)
             prof_split[name] = by_stage(times, ABLATE_STAGES)
-    cuda_core = [k for k in seen if any(n in k for n in CUDA_CORE_KERNELS)]
+        patches = v1_patches(fd, bd, bf)
+        v1_kernels = set(profile_ms(lambda: attention_scores_paste(*patches, mm, g, g)))
+    cuda_core = [k for k in seen | v1_kernels if any(n in k for n in CUDA_CORE_KERNELS)]
     check(not cuda_core, f"ablate: a bf16 call launched CUDA-core kernels {cuda_core}")
     emit("ablate", kernel_vs_plain_max_abs_err=worst, batch=batch, dtype=result["dtype"],
-         launches=launches, tc_launches=tc_launches, ms=ms,
+         launches=launches, tc_launches=tc_launches, v1_tc_launches=v1_tc_launches, ms=ms,
          saves_ms={m: ms["full"] - ms[m] for m in MODES},
          stage_ms={"ablation (full minus mode, CUDA events)": result["stage_ms"],
                    "profiler (device ms per run(mode='full'), mean of 5)": prof_split["full"]},
@@ -454,6 +478,7 @@ def phase_ablate(batch=64):
          natural_minus_phases_ms={"vs run": ms["fold-full"] - ms["full"],
                                   "vs run_padded": ms["fold-full"] - ms["padded-full"]},
          kernels_of_bf16_calls=sorted(k[:80] for k in seen),
+         kernels_of_bf16_v1_call=sorted(k[:80] for k in v1_kernels),
          rel_err_vs_full=errs, tolerances={"kernel_vs_plain": "y's (f32 atol, bf16 atol "
          f"and rtol {attn_ablate.Y_TOL[torch.float32][0]}, {attn_ablate.Y_TOL[torch.bfloat16]}) "
          f"+ {attn_ablate.ABLATE_REL} * max|ref|, + 2 bf16 straddles for paste_bf16",
@@ -696,6 +721,7 @@ FWD_STAGES = (("norm", "patch_norm"), ("score", "lp_gemm<0>"),
 BWD_STAGES = (("dprobs", "lp_gemm<1>"), ("split_probs", "split_rows"), ("db_full", "pc_gemm<3>"),
               ("softmax_bwd", "softmax_bwd"), ("fuse_adj", "fuse_adj_tc"), ("dn2", "dn2_kernel"),
               ("dfd", "pc_gemm<4>"), ("dbd", "pc_gemm<5>"))
+V1_STAGES = (("score", "v1_gemm<0>"), ("fuse_softmax", "fuse_softmax_tc"), ("paste", "v1_gemm<1>"))
 
 
 def profile_ms(fn, calls=5):
@@ -724,6 +750,13 @@ def stage_split(fn, stages, calls=5):
     return by_stage(profile_ms(fn, calls), stages)
 
 
+def _bound(flops, nbytes, peak):
+    """(least ms, what bounds it) for `flops` operations at `peak` and
+    `nbytes` moved at the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def bound_ms(b, hd, wd, c, dtype):
     """Least time for the work of one forward call: operations at the peak
     rate of the input type, bytes moved once (inputs read, output written)."""
@@ -732,8 +765,7 @@ def bound_ms(b, hd, wd, c, dtype):
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = b * (2 * num_l * c * esize + 4 * num_l * c * esize + num_l * 4
                   + 4 * num_l * c * esize)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return (*_bound(flops, nbytes, PEAK_FLOPS[dtype]), flops, nbytes)
 
 
 def bwd_bound_ms(b, hd, wd, c, dtype):
@@ -746,8 +778,17 @@ def bwd_bound_ms(b, hd, wd, c, dtype):
     esize = torch.tensor([], dtype=dtype).element_size()
     nbytes = b * ((2 + 8 + 2 + 4) * num_l * c * esize + 2 * num_l * num_l * 4
                   + 2 * num_l * 4)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    return (*_bound(flops, nbytes, PEAK_FLOPS[dtype]), flops, nbytes)
+
+
+def v1_bound_ms(b, num_l, k, rc, dtype):
+    """Least time for one v1 call: the score product (K deep) and the paste
+    (L deep) at the peak rate of the input type; bytes: fpat, wnorm, raw
+    and vals in the input type, mm in float32, each moved once."""
+    flops = b * 2 * num_l * num_l * (k + rc)
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = b * ((2 * num_l * k + 2 * num_l * rc) * esize + num_l * 4)
+    return (*_bound(flops, nbytes, PEAK_FLOPS[dtype]), flops, nbytes)
 
 
 def time_events(fn, reps):
@@ -760,92 +801,90 @@ def time_events(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def timed(kernel, plain, reps, plain_reps):
+    """Warm-up, then CUDA-event windows in the order plain, kernel, kernel,
+    plain: ([k1, k2], [p1, p2])."""
+    for _ in range(3):
+        kernel()
+        plain()
+    torch.cuda.synchronize()
+    p1 = time_events(plain, plain_reps)
+    k1 = time_events(kernel, reps)
+    k2 = time_events(kernel, reps)
+    p2 = time_events(plain, plain_reps)
+    return [k1, k2], [p1, p2]
+
+
+def emit_timing(name, shape, dtype, kernel_ms, plain_ms, bound, err, device_ms, **extra):
+    """One `timing` line; returns the kernels-line row (the faster window of
+    each). device_ms: device ms per stage (bf16) or per kernel (float32,
+    which also gets its 3xTF32 bound)."""
+    bms, bound_by, flops, nbytes = bound
+    ms = min(kernel_ms)
+    if dtype == torch.float32:
+        tf32_ms, tf32_by = _bound(flops, nbytes, PEAK_3XTF32)
+        extra.update(bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by,
+                     roofline_share_3xtf32=tf32_ms / ms)
+    emit("timing", kernel=name, shape=shape, dtype=str(dtype), kernel_ms=kernel_ms,
+         plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, flops=flops, bytes=nbytes,
+         roofline_share=bms / ms, max_abs_err=err, device_ms=device_ms, **extra)
+    return dict(ms=ms, plain_ms=min(plain_ms), bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+
+
+def device_ms(kernel, stages, dtype):
+    """The bf16 route's stage split, or the float32 route's time per kernel."""
+    return stage_split(kernel, stages) if dtype == torch.bfloat16 else profile_ms(kernel)
+
+
+# Inputs of the timing phases: fd unscaled for bf16 (near one-hot
+# attention), scaled by 0.05 for float32, whose y gate (atol 3e-4) holds
+# for soft attention (phase kernel); the work does not depend on the data.
+def timing_fscale(dtype):
+    return 1.0 if dtype == torch.bfloat16 else 0.05
+
+
 def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
-    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=1.0)
+    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
+                                          fscale=timing_fscale(dtype))
     kernel = lambda: attention_v2(fd, bd, b_full, mm, hd, wd)
     plain = lambda: attention_v2_reference(fd, bd, b_full, mm, hd, wd)
     with torch.no_grad():
         y, y_ref = kernel(), plain()
         err = max_err(y, y_ref)
         check(y_within(y, y_ref, dtype), f"timing shape: y err {err}")
-        for _ in range(3):
-            kernel()
-            plain()
-        torch.cuda.synchronize()
-        # plain, kernel, kernel, plain
-        p1 = time_events(plain, 5)
-        k1 = time_events(kernel, 20)
-        k2 = time_events(kernel, 20)
-        p2 = time_events(plain, 5)
-        stages = stage_split(kernel, FWD_STAGES)
-    bms, bound_by, flops, nbytes = bound_ms(b, hd, wd, c, dtype)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    emit("timing", kernel="attention_v2", shape=[b, hd, wd, c], dtype=str(dtype),
-         kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
-         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err, stage_device_ms=stages)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+        kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
+        stages = device_ms(kernel, FWD_STAGES, dtype)
+    return emit_timing("attention_v2", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
+                       bound_ms(b, hd, wd, c, dtype), err, stages)
 
 
 def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
-    args = backward_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=1.0)
+    args = backward_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=timing_fscale(dtype))
     kernel = lambda: attention_v2_bwd(*args, hd, wd)
     plain = lambda: attention_v2_bwd_reference(*args, hd, wd)
     got, want = kernel(), plain()
     results = [bwd_within(g, w, dtype) for g, w in zip(got, want)]
     err = max(r[1] for r in results)
     check(all(r[0] for r in results), f"timing shape: backward errs {results}")
-    for _ in range(3):
-        kernel()
-        plain()
-    torch.cuda.synchronize()
-    # plain, kernel, kernel, plain
-    p1 = time_events(plain, 3)
-    k1 = time_events(kernel, 10)
-    k2 = time_events(kernel, 10)
-    p2 = time_events(plain, 3)
-    stages = stage_split(kernel, BWD_STAGES)
-    bms, bound_by, flops, nbytes = bwd_bound_ms(b, hd, wd, c, dtype)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    emit("timing", kernel="attention_v2_bwd", shape=[b, hd, wd, c], dtype=str(dtype),
-         kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms, bound_by=bound_by, flops=flops,
-         bytes=nbytes, roofline_share=bms / ms, max_abs_err=err, stage_device_ms=stages)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
-
-
-def v1_bound_ms(b, num_l, k, rc, dtype):
-    """Least time for one v1 call: the score product (K deep) and the paste
-    (L deep) at the peak rate of the input type; bytes: fpat, wnorm, raw
-    and vals in the input type, mm in float32, each moved once."""
-    flops = b * 2 * num_l * num_l * (k + rc)
-    esize = torch.tensor([], dtype=dtype).element_size()
-    nbytes = b * ((2 * num_l * k + 2 * num_l * rc) * esize + num_l * 4)
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+    kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
+    return emit_timing("attention_v2_bwd", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
+                       bwd_bound_ms(b, hd, wd, c, dtype), err,
+                       device_ms(kernel, BWD_STAGES, dtype))
 
 
 def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
-    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=1.0)
+    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
+                                          fscale=timing_fscale(dtype))
     patches = v1_patches(fd, bd, b_full)
     kernel = lambda: attention_scores_paste(*patches, mm, hd, wd)
     plain = lambda: attention_scores_paste_reference(*patches, mm, hd, wd)
     got, want = kernel(), plain()
     err = max_err(got, want)
     check(y_within(got, want, dtype), f"timing shape: v1 vals err {err}")
-    for _ in range(3):
-        kernel()
-        plain()
-    torch.cuda.synchronize()
-    # plain, kernel, kernel, plain
-    p1 = time_events(plain, 5)
-    k1 = time_events(kernel, 20)
-    k2 = time_events(kernel, 20)
-    p2 = time_events(plain, 5)
-    bms, bound_by, flops, nbytes = v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype)
-    ms, plain_ms = min(k1, k2), min(p1, p2)
-    emit("timing", kernel="attention_scores_paste", shape=[b, hd * wd, 9 * c, 16 * c],
-         dtype=str(dtype), kernel_ms=[k1, k2], plain_ms=[p1, p2], bound_ms=bms,
-         bound_by=bound_by, flops=flops, bytes=nbytes, roofline_share=bms / ms, max_abs_err=err)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+    kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
+    return emit_timing("attention_scores_paste", [b, hd * wd, 9 * c, 16 * c], dtype, kernel_ms,
+                       plain_ms, v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype), err,
+                       device_ms(kernel, V1_STAGES, dtype))
 
 
 def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
@@ -886,6 +925,25 @@ def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     return rows
 
 
+def phase_timing_ablate_f32(b=64, hd=32, wd=32, c=64):
+    """run(mode="full") on the float32 (CUDA-core) ablation against its
+    plain version, CUDA events, soft-attention inputs as the other float32
+    timings."""
+    dtype = torch.float32
+    fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
+                                          fscale=timing_fscale(dtype))
+    kernel = lambda: run(fd, bd, b_full, mm, hd, wd)
+    plain = lambda: ablate_reference(fd, bd, b_full, mm, hd, wd)
+    with torch.no_grad():
+        got, want = kernel(), plain()
+        err = max_err(got, want)
+        check(y_within(got, want, dtype), f"timing shape: f32 run err {err}")
+        kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
+        per_kernel = profile_ms(kernel)
+    return emit_timing("attn_ablate.run", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
+                       bound_ms(b, hd, wd, c, dtype), err, per_kernel, mode="full")
+
+
 ABLATE_REPLACES = {"run": 247, "run_padded": 289, "run_auto": 466, "run_fold": 657}
 
 
@@ -913,7 +971,11 @@ def main():
     tb = phase_timing_bwd()
     t1 = phase_timing_v1()
     ta = phase_timing_ablate(ablation)
-    rows = [dict(name="attention_scores_paste", source="healthivert_tpu_torch/csrc/attention_v1.cu",
+    phase_timing(dtype=torch.float32)
+    phase_timing_bwd(dtype=torch.float32)
+    phase_timing_v1(dtype=torch.float32)
+    phase_timing_ablate_f32()
+    rows = [dict(name="attention_scores_paste", source="healthivert_tpu_torch/csrc/attention_tc_v1.cu",
                  replaces="healthivert_tpu/ops/attention_pallas.py:199",
                  launches=ablate_launches["attention_scores_paste"], **t1)]
     rows += [dict(name=f"attn_ablate.{name}",

@@ -121,8 +121,7 @@ int launch_score(const CUtensorMap& ma, const CUtensorMap& mb, const Geom& g, in
   if constexpr (NSTAGES == STAGES) {
     return launch_lp<kScore>(ma, mb, g, B, nrm_raw, s, st);
   } else {
-    static const int attr = smem_attribute(lp_gemm_sync<kScore>);
-    if (attr != 0) return attr;
+    HV_TRY(smem_attribute(lp_gemm_sync<kScore>));
     lp_gemm_sync<kScore><<<lp_grid(g, B), THREADS, SMEM_BYTES, st>>>(ma, mb, g, nrm_raw, s);
     return static_cast<int>(cudaGetLastError());
   }
@@ -131,8 +130,7 @@ int launch_score(const CUtensorMap& ma, const CUtensorMap& mb, const Geom& g, in
 template <int VAR, int IO, int NSTAGES>
 int launch_paste(const CUtensorMap& ma_hi, const CUtensorMap& ma_lo, const CUtensorMap& mb,
                  const Geom& g, int B, const float* col_inv, void* y, cudaStream_t st) {
-  static const int attr = smem_attribute(paste_gemm<VAR, IO, NSTAGES>);
-  if (attr != 0) return attr;
+  HV_TRY(smem_attribute(paste_gemm<VAR, IO, NSTAGES>));
   paste_gemm<VAR, IO, NSTAGES><<<pc_grid(g, B, 4), THREADS, SMEM_BYTES, st>>>(
       ma_hi, ma_lo, mb, g, col_inv, static_cast<bf16*>(y));
   return static_cast<int>(cudaGetLastError());

@@ -468,8 +468,17 @@ bool valid(const Geom& g, int B) {
          g.Cp >= g.C && g.hd >= 2 && g.wd >= 2 && B >= 1 && B <= 65535;
 }
 
-// The GEMM kernels' dynamic shared memory (above the 48 KiB default), set
-// once per kernel on the first launch.
+#define HV_TRY(x)          \
+  do {                     \
+    const int rc_ = (x);   \
+    if (rc_ != 0) return rc_; \
+  } while (0)
+
+// The GEMM kernels' dynamic shared memory (above the 48 KiB default). The
+// limit is an attribute of the function on each device, so every launcher
+// sets it on the current device before each launch (a host call that
+// queues nothing): a flag kept once per process would leave a second card
+// at the default, where the launch fails.
 template <class K>
 int smem_attribute(K kernel) {
   return static_cast<int>(
@@ -488,8 +497,7 @@ inline dim3 pc_grid(const Geom& g, int B, int phases) {
 template <int KIND>
 int launch_lp(const CUtensorMap& ma, const CUtensorMap& mb, const Geom& g, int B,
               const float* nrm_raw, float* out, cudaStream_t st) {
-  static const int attr = smem_attribute(lp_gemm<KIND>);
-  if (attr != 0) return attr;
+  HV_TRY(smem_attribute(lp_gemm<KIND>));
   lp_gemm<KIND><<<lp_grid(g, B), THREADS, SMEM_BYTES, st>>>(ma, mb, g, nrm_raw, out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -498,17 +506,10 @@ template <int KIND>
 int launch_pc(const CUtensorMap& ma_hi, const CUtensorMap& ma_lo, const CUtensorMap& mb,
               const Geom& g, int B, const float* dn2, const void* bd, void* out,
               cudaStream_t st) {
-  static const int attr = smem_attribute(pc_gemm<KIND>);
-  if (attr != 0) return attr;
+  HV_TRY(smem_attribute(pc_gemm<KIND>));
   pc_gemm<KIND><<<pc_grid(g, B, PCOp<KIND>::PASTE ? 4 : 1), THREADS, SMEM_BYTES, st>>>(
       ma_hi, ma_lo, mb, g, dn2, static_cast<const bf16*>(bd), static_cast<bf16*>(out));
   return static_cast<int>(cudaGetLastError());
 }
-
-#define HV_TRY(x)          \
-  do {                     \
-    const int rc_ = (x);   \
-    if (rc_ != 0) return rc_; \
-  } while (0)
 
 }  // namespace

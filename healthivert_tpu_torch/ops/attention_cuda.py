@@ -17,8 +17,10 @@ tensor each runs its plain PyTorch version (`attention_v2_reference`,
 package. `AttentionV2Function` is the counterpart of the custom VJP
 `attention_v2_diff` (:822-850). `attention_scores_paste` replaces the v1
 Pallas kernel `attention_scores_paste` (:199, body `_attention_kernel`
-:98-195), which works on patch tensors built beforehand
-(csrc/attention_v1.cu; plain version `attention_scores_paste_reference`).
+:98-195), which works on patch tensors built beforehand: bfloat16 on the
+tensor cores (csrc/attention_tc_v1.cu, the forward's tensor-core pieces
+with one tap), float32 on the CUDA cores (csrc/attention_v1.cu); plain
+version `attention_scores_paste_reference`.
 The library also holds the forward's stage ablation on both routes
 (csrc/attention_tc_ablate.cu for bf16, csrc/attention_v2_ablate.cu for
 float32), whose wrappers live in `healthivert_tpu_torch.experiments.attn_ablate`.
@@ -53,8 +55,9 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_tc.cu", "attention_v1.cu",
-           "attention_v2_ablate.cu", "attention_tc_ablate.cu", "attention_v2_common.cuh",
-           "attention_v2_kernels.cuh", "attention_tc.cuh", "attention_tc_kernels.cuh")
+           "attention_tc_v1.cu", "attention_v2_ablate.cu", "attention_tc_ablate.cu",
+           "attention_v2_common.cuh", "attention_v2_kernels.cuh", "attention_tc.cuh",
+           "attention_tc_kernels.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -150,7 +153,12 @@ def load_library(force_build: bool = False):
             fn.restype = ctypes.c_int
             fn = lib.hv_attention_scores_paste
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_float, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_tc_scores_paste
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+                ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
             fn = lib.hv_attention_v2_ablate
@@ -515,6 +523,8 @@ def attention_scores_paste(fpat, wnorm, raw, mm, hd: int, wd: int, scale: float 
     if fpat.device.type != "cuda":
         raise ValueError(f"attention_scores_paste: no kernel for device {fpat.device}")
     _check_v1(fpat, wnorm, raw, mm, hd, wd)
+    if fpat.dtype == torch.bfloat16:
+        return _attention_tc_v1(fpat, wnorm, raw, mm, hd, wd, scale)
     lib, _ = load_library()
     bs, num_l, k = fpat.shape
     num_r = raw.shape[-1]
@@ -526,8 +536,7 @@ def attention_scores_paste(fpat, wnorm, raw, mm, hd: int, wd: int, scale: float 
         rc = lib.hv_attention_scores_paste(
             fpat.data_ptr(), wnorm.data_ptr(), raw.data_ptr(), mm.data_ptr(),
             vals.data_ptr(), s.data_ptr(), probs.data_ptr(),
-            bs, hd, wd, k, num_r, float(scale), 1 if fpat.dtype == torch.bfloat16 else 0,
-            torch.cuda.current_stream(dev).cuda_stream,
+            bs, hd, wd, k, num_r, float(scale), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"attention_scores_paste kernel launch failed: CUDA error {rc}")
@@ -535,7 +544,44 @@ def attention_scores_paste(fpat, wnorm, raw, mm, hd: int, wd: int, scale: float 
     return vals
 
 
-attention_scores_paste.launches = 0  # kernel launches in this process, counted above
+attention_scores_paste.launches = 0  # kernel launches in this process, both routes
+attention_scores_paste.tc_launches = 0  # of which on the bf16 tensor-core route
+
+
+def v1_tc_operands(fpat, wnorm, raw):
+    """fpat, wnorm and raw as the tensor-core route reads them: K and RC
+    zero-padded to multiples of 64 (TMA strides rows in 16-byte steps and
+    reads boxes of 64 channels; zero channels add nothing to a score or a
+    paste), copied only where a pad is needed (not at the generator's K =
+    576, RC = 1024)."""
+    k_pad, r_pad = -(-fpat.shape[-1] // 64) * 64, -(-raw.shape[-1] // 64) * 64
+    return pad_channels(fpat, k_pad), pad_channels(wnorm, k_pad), pad_channels(raw, r_pad)
+
+
+def _attention_tc_v1(fpat, wnorm, raw, mm, hd, wd, scale):
+    """attention_scores_paste on the bf16 tensor-core route
+    (csrc/attention_tc_v1.cu); vals cut back to the real RC by the kernel."""
+    lib, _ = load_library()
+    bs, num_l, k = fpat.shape
+    num_r = raw.shape[-1]
+    wdp, kp = tc_geometry(hd, wd)
+    dev = fpat.device
+    fpat_p, wnorm_p, raw_p = v1_tc_operands(fpat, wnorm, raw)
+    vals = torch.empty((bs, num_l, num_r), dtype=fpat.dtype, device=dev)
+    s = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
+    pt_hi = torch.empty((bs, num_l, kp), dtype=torch.bfloat16, device=dev)
+    pt_lo = torch.empty_like(pt_hi)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tc_scores_paste(
+            fpat_p.data_ptr(), wnorm_p.data_ptr(), raw_p.data_ptr(), mm.data_ptr(),
+            vals.data_ptr(), s.data_ptr(), pt_hi.data_ptr(), pt_lo.data_ptr(),
+            bs, hd, wd, k, fpat_p.shape[-1], num_r, raw_p.shape[-1], wdp, kp, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_scores_paste (tensor cores)", rc)
+    attention_scores_paste.launches += 1
+    attention_scores_paste.tc_launches += 1
+    return vals
 
 
 def v1_patches(fd, bd, b_full):
@@ -564,23 +610,28 @@ class AttentionV2Function(torch.autograd.Function):
     """Differentiable `attention_v2`: the forward saves its residuals (s,
     probs, nrm_raw) and the backward runs `attention_v2_bwd` on them. Both
     directions take the kernel on a CUDA tensor and the plain version on a
-    CPU tensor. The gate mm gets no gradient.
+    CPU tensor. The gate mm gets no gradient. With with_probs it also
+    returns probs (B, L, P), float32 and not differentiable (the attention
+    offsets' argmax reads them).
 
-    apply(fd, bd, b_full, mm, hd, wd, scale) -> y"""
+    apply(fd, bd, b_full, mm, hd, wd, scale[, with_probs]) -> y, or (y, probs)"""
 
     @staticmethod
-    def forward(ctx, fd, bd, b_full, mm, hd, wd, scale):
+    def forward(ctx, fd, bd, b_full, mm, hd, wd, scale, with_probs=False):
         y, s, probs, nrm_raw = attention_v2(fd, bd, b_full, mm, hd, wd, scale,
                                             emit_residuals=True)
         ctx.save_for_backward(fd, bd, b_full, mm, s, probs, nrm_raw)
         ctx.grid = (hd, wd, scale)
-        return y
+        if not with_probs:
+            return y
+        ctx.mark_non_differentiable(probs)
+        return y, probs
 
     @staticmethod
-    def backward(ctx, dy):
+    def backward(ctx, dy, *_):
         fd, bd, b_full, mm, s, probs, nrm_raw = ctx.saved_tensors
         hd, wd, scale = ctx.grid
         dfd, dbd, db_full = attention_v2_bwd(
             fd, bd, b_full, dy.contiguous(), probs, s, nrm_raw, mm, hd, wd, scale
         )
-        return dfd, dbd, db_full, None, None, None, None
+        return dfd, dbd, db_full, None, None, None, None, None

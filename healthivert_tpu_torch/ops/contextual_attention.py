@@ -124,10 +124,12 @@ def contextual_attention(f, b, mask, softmax_scale: float = 10.0,
     the hole, downscaled here by 1/8 to the H/2 x W/2 matching grid.
 
     compute_offsets: also return the argmax patch coordinates per query,
-    taken from the attention's `probs` residual; forward only, as in the
-    JAX package. Otherwise, when autograd records (grad enabled and f or b
-    requiring grad), the attention runs through `AttentionV2Function`, whose
-    backward is the backward kernel; under no_grad it is a plain call."""
+    taken from the attention's `probs` residual. When autograd records
+    (grad enabled and f or b requiring grad) the attention runs through
+    `AttentionV2Function`, whose backward is the backward kernel, with or
+    without offsets (the offsets read the probs it saved, and y keeps its
+    gradient, as the JAX package's XLA formulation does); under no_grad it
+    is a plain call."""
     from .attention_cuda import AttentionV2Function, attention_v2
 
     bs, h, w, _ = f.shape
@@ -141,15 +143,16 @@ def contextual_attention(f, b, mask, softmax_scale: float = 10.0,
     mm = (mpat.mean(dim=(2, 3, 4)) == 0.0).to(torch.float32)  # (B, L)
 
     args = (fd.contiguous(), bd.contiguous(), b.contiguous(), mm, hd, wd, softmax_scale)
+    records = torch.is_grad_enabled() and (f.requires_grad or b.requires_grad)
     if compute_offsets:
-        y, _s, probs, _n = attention_v2(*args, emit_residuals=True)
+        if records:
+            y, probs = AttentionV2Function.apply(*args, True)
+        else:
+            y, _s, probs, _n = attention_v2(*args, emit_residuals=True)
         off = torch.argmax(probs, dim=1)  # (B, P)
         offsets = torch.stack([off // wd, off % wd], dim=-1)
         offsets = offsets.reshape(bs, hd, wd, 2).to(torch.int32)
     else:
-        if torch.is_grad_enabled() and (f.requires_grad or b.requires_grad):
-            y = AttentionV2Function.apply(*args)
-        else:
-            y = attention_v2(*args)
+        y = AttentionV2Function.apply(*args) if records else attention_v2(*args)
         offsets = torch.zeros((bs, hd, wd, 2), dtype=torch.int32, device=f.device)
     return AttentionOut(y.to(f.dtype), offsets)

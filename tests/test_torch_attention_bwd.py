@@ -146,18 +146,57 @@ def test_contextual_attention_gradient_matches_jax():
 
 
 def test_contextual_attention_routes_by_autograd():
-    """The Function only where autograd records; no_grad and the offsets
-    path are plain forwards, as in the JAX package."""
+    """The Function wherever autograd records, with offsets or without;
+    no_grad is a plain forward. The offsets path gives the same y, the same
+    gradient and the same offsets as the paths beside it."""
     f, mask = map(torch.from_numpy, _feature_case())
     with torch.no_grad():
         plain = ca.contextual_attention(f, f, mask).y
-    assert plain.grad_fn is None
+        plain_offsets = ca.contextual_attention(f, f, mask, compute_offsets=True)
+    assert plain.grad_fn is None and plain_offsets.y.grad_fn is None
     live = f.clone().requires_grad_(True)
     y = ca.contextual_attention(live, live, mask).y
     assert y.grad_fn is not None
     torch.testing.assert_close(y.detach(), plain)
     with_offsets = ca.contextual_attention(live, live, mask, compute_offsets=True)
     torch.testing.assert_close(with_offsets.y.detach(), plain)
+    assert with_offsets.y.grad_fn is not None
+    assert torch.equal(with_offsets.offsets, plain_offsets.offsets)
+    cot = torch.from_numpy(np.random.default_rng(4).standard_normal(y.shape).astype(np.float32))
+    want = torch.autograd.grad((y * cot).sum(), live)[0]
+    got = torch.autograd.grad((with_offsets.y * cot).sum(), live)[0]
+    assert torch.equal(got, want)
+
+
+def test_contextual_attention_offsets_gradient_matches_jax():
+    """compute_offsets=True under grad: the gradient through the attention
+    against jax.grad of the JAX XLA formulation with offsets
+    (use_pallas=False, compute_offsets=True), and the offsets against its
+    offsets. Separate foreground and background, so that each gets its own
+    gradient; a random cotangent; f32, within 1e-5 of each gradient's
+    largest entry (two derivations of one float32 gradient)."""
+    f, mask = _feature_case()
+    rng = np.random.default_rng(5)
+    b = rng.standard_normal(f.shape).astype(np.float32)
+    cot = rng.standard_normal(f.shape).astype(np.float32)
+    jm, jc = jnp.asarray(mask), jnp.asarray(cot)
+
+    def loss(x, y):
+        return jnp.sum(jax_contextual_attention(x, y, jm, use_pallas=False,
+                                                compute_offsets=True).y * jc)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(f), jnp.asarray(b))
+    want_off = jax_contextual_attention(jnp.asarray(f), jnp.asarray(b), jm, use_pallas=False,
+                                        compute_offsets=True).offsets
+    ft, bt = (torch.from_numpy(a).requires_grad_(True) for a in (f, b))
+    out = ca.contextual_attention(ft, bt, torch.from_numpy(mask), compute_offsets=True)
+    got = torch.autograd.grad((out.y * torch.from_numpy(cot)).sum(), (ft, bt))
+    np.testing.assert_array_equal(out.offsets.numpy(), np.asarray(want_off))
+    for name, g, w in zip(("f", "b"), got, want):
+        w = np.asarray(w)
+        assert np.abs(w).max() > 0, name
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-5 * np.abs(w).max(),
+                                   err_msg=name)
 
 
 def test_fuse_and_patch_adjoints_are_transposes(rng):

@@ -1,9 +1,9 @@
 """The CUDA attention kernels (forward, backward, the v1 patch attention
 and the forward's stage ablation) against their plain PyTorch versions, on
-the card. bf16 forward, backward and ablation run the tensor-core route
-(csrc/attention_tc.cu, attention_tc_ablate.cu), float32 the CUDA-core route
-(csrc/attention_v2.cu, attention_v2_bwd.cu, attention_v2_ablate.cu); the
-same tolerances hold both.
+the card. bf16 forward, backward, v1 and ablation run the tensor-core route
+(csrc/attention_tc.cu, attention_tc_v1.cu, attention_tc_ablate.cu), float32
+the CUDA-core route (csrc/attention_v2.cu, attention_v2_bwd.cu,
+attention_v1.cu, attention_v2_ablate.cu); the same tolerances hold both.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from healthivert_tpu_torch.experiments import attn_ablate
+from healthivert_tpu_torch.ops import contextual_attention as ca
 from healthivert_tpu_torch.ops.attention_cuda import (
     AttentionV2Function,
     attention_scores_paste,
@@ -116,13 +117,23 @@ def test_dtype_picks_the_route(cuda_device):
         assert [a - b for a, b in zip(after, before)] == [1, tc, 1, tc], dtype
 
 
-@pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64"])
+@pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64", "v1_B64"])
 def test_tensor_core_route_at_production_shapes(cuda_device, direction):
     """The main path's shapes (32 x 32, C = 64; the forward at the 3D
-    driver's batch of 64, the backward at the recipe's 32), bf16, at the
-    tolerances above; and the backward at 64, where B * L = 65536 rows
-    pass the 65535 limit of a grid's y and z."""
-    if direction == "forward_B64":
+    driver's batch of 64, the backward at the recipe's 32, v1 at the
+    ablation's 64 with K = 576, RC = 1024), bf16, at the tolerances above;
+    and the backward at 64, where B * L = 65536 rows pass the 65535 limit of
+    a grid's y and z."""
+    if direction == "v1_B64":
+        fd, bd, b_full, mm = make_inputs(64, 32, 32, 64, "middle", torch.bfloat16, cuda_device)
+        patches = v1_patches(fd, bd, b_full)
+        before = attention_scores_paste.tc_launches
+        got = attention_scores_paste(*patches, mm, 32, 32, 10.0)
+        torch.cuda.synchronize()
+        assert attention_scores_paste.tc_launches == before + 1
+        want = attention_scores_paste_reference(*patches, mm, 32, 32, 10.0)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1e-3)
+    elif direction == "forward_B64":
         fd, bd, b_full, mm = make_inputs(64, 32, 32, 64, "middle", torch.bfloat16, cuda_device)
         y, s, probs, nrm = attention_v2(fd, bd, b_full, mm, 32, 32, 10.0, emit_residuals=True)
         torch.cuda.synchronize()
@@ -245,16 +256,77 @@ def test_v1_kernel_matches_plain(cuda_device, shape, band, dtype):
     b, hd, wd, c = shape
     fd, bd, b_full, mm = make_inputs(b, hd, wd, c, band, dtype, cuda_device)
     patches = v1_patches(fd, bd, b_full)
-    before = attention_scores_paste.launches
+    before = (attention_scores_paste.launches, attention_scores_paste.tc_launches)
     got = attention_scores_paste(*patches, mm, hd, wd, 10.0)
     torch.cuda.synchronize()
-    assert attention_scores_paste.launches == before + 1
+    # bf16 on the tensor-core route (K = 180 padded to 192 at C = 20),
+    # float32 on the CUDA cores (attention_v1.cu)
+    tc = int(dtype == torch.bfloat16)
+    assert (attention_scores_paste.launches, attention_scores_paste.tc_launches) == (
+        before[0] + 1, before[1] + tc)
     want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
     assert got.dtype == dtype and got.shape == (b, hd * wd, 16 * c)
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=0, atol=3e-4)
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2, atol=1e-3)
+
+
+def test_v1_tc_raises_where_the_route_cannot_go(cuda_device):
+    """A bf16 v1 call whose operand TMA cannot read (two bytes off a
+    16-byte boundary; K = 576 is not copied by the pad) raises and counts
+    no launch; it does not drop to the CUDA cores."""
+    fd, bd, b_full, mm = make_inputs(1, 8, 8, 64, "middle", torch.bfloat16, cuda_device)
+    fpat, wnorm, raw = v1_patches(fd, bd, b_full)
+    off = torch.empty(fpat.numel() + 1, dtype=fpat.dtype, device=fpat.device)[1:]
+    off = off.view(fpat.shape).copy_(fpat)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    before = (attention_scores_paste.launches, attention_scores_paste.tc_launches)
+    with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
+        attention_scores_paste(off, wnorm, raw, mm, 8, 8)
+    torch.cuda.synchronize()
+    assert (attention_scores_paste.launches, attention_scores_paste.tc_launches) == before
+
+
+def test_offsets_keep_the_gradient(cuda_device):
+    """contextual_attention with compute_offsets under grad: y has a
+    grad_fn, y and the offsets equal the paths without offsets and without
+    grad, and the gradient the path without offsets' (within the
+    backward's tolerance), on both routes."""
+    for dtype in (torch.float32, torch.bfloat16):
+        f, b, _, _ = make_inputs(2, 16, 16, 8, "middle", dtype, cuda_device)
+        mask = torch.zeros(2, 64, 64, 1, device=cuda_device)
+        mask[:, 24:48] = 1.0
+        with torch.no_grad():
+            want_off = ca.contextual_attention(f, b, mask, compute_offsets=True).offsets
+        leaves = [t.clone().requires_grad_(True) for t in (f, b)]
+        out = ca.contextual_attention(*leaves, mask, compute_offsets=True)
+        assert out.y.grad_fn is not None, dtype
+        y = ca.contextual_attention(*leaves, mask).y
+        assert torch.equal(out.y, y) and torch.equal(out.offsets, want_off), dtype
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(0)).to(y)
+        got = torch.autograd.grad((out.y.float() * cot).sum(), leaves)
+        want = torch.autograd.grad((y.float() * cot).sum(), leaves)
+        for g, w in zip(got, want):  # the bf16 backward sums its norm rows with atomics
+            assert bwd_within(g, w, dtype), (dtype, float((g.float() - w.float()).abs().max()))
+
+
+def test_bf16_gemm_launches_on_a_second_card(cuda_device):
+    """The GEMMs' shared-memory attribute is set on each device: a bf16
+    forward and v1 call on cuda:1 after one on cuda:0 launch and agree with
+    their plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs: torch.cuda.device_count() < 2")
+    for dev in (torch.device("cuda:0"), torch.device("cuda:1")):
+        fd, bd, b_full, mm = make_inputs(2, 16, 16, 64, "bottom", torch.bfloat16, dev)
+        y = attention_v2(fd, bd, b_full, mm, 16, 16)
+        patches = v1_patches(fd, bd, b_full)
+        vals = attention_scores_paste(*patches, mm, 16, 16)
+        torch.cuda.synchronize(dev)
+        y_r = attention_v2_reference(fd, bd, b_full, mm, 16, 16)
+        v_r = attention_scores_paste_reference(*patches, mm, 16, 16)
+        torch.testing.assert_close(y.float(), y_r.float(), rtol=1.6e-2, atol=1e-3)
+        torch.testing.assert_close(vals.float(), v_r.float(), rtol=1.6e-2, atol=1e-3)
 
 
 def test_v1_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
