@@ -7,27 +7,30 @@ kernels against their plain PyTorch versions. Phases, each printing one
 JSON line:
 
   1. device     card name and count, nvidia-smi name and power limit; TF32
-                is switched off for the float32 phases
+                is switched off for the float32 phases (PyTorch's own
+                matmuls and convolutions; the float32 attention route runs
+                3xTF32 by design)
   2. build      one nvcc process per source for sm_90a, all started
-                together (csrc/attention_v2.cu, attention_v2_bwd.cu,
-                attention_tc.cu, attention_v1.cu, attention_tc_v1.cu,
-                attention_v2_ablate.cu, attention_tc_ablate.cu), linked into
-                one library, with the -Xptxas -v register and shared-memory
-                report of each kernel; the SASS (cuobjdump -sass) of every
-                tensor-core GEMM kernel, the bf16 route's six, v1's score
-                and paste, and the ablation's score and paste
+                together (csrc/attention_tc.cu, attention_tf32.cu,
+                attention_v1.cu, attention_tc_v1.cu, attention_v2_ablate.cu,
+                attention_tc_ablate.cu), linked into one library, with the
+                -Xptxas -v register and shared-memory report of each kernel;
+                the SASS (cuobjdump -sass) of every tensor-core GEMM kernel,
+                the bf16 route's six, the float32 (3xTF32) route's six, v1's
+                score and paste, and the ablation's score and paste
                 instantiations (the depth-1 ring's included), must hold
                 HGMMA (wgmma) and UTMALDG (TMA loads); then, for comparison,
                 the seconds of one nvcc call over the same files (its
                 library thrown away)
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
-                f32 (CUDA-core route) and bf16 (tensor-core route), hole
-                band in the middle, bottom and top; and odd cases (16 x 16,
-                C=4; 6 x 10, C=20): y, s, probs, nrm_raw
+                f32 (3xTF32 route, counted by tf32_launches) and bf16
+                (tensor-core route), hole band in the middle, bottom and
+                top; odd cases (16 x 16, C=4; 6 x 10, C=20); and B=64 f32:
+                y, s, probs, nrm_raw
   4. kernel_bwd attention_v2_bwd kernel vs plain version on the forward
                 kernel's residuals and a random cotangent, at the same
-                cases plus 6 x 10, C=20, and B=64, 32 x 32, C=64, bf16:
-                dfd, dbd, db_full
+                cases plus 6 x 10, C=20, B=64 bf16 and B=32 f32 (32 x 32,
+                C=64): dfd, dbd, db_full
   5. kernel_v1  attention_scores_paste (v1) kernel vs plain version on the
                 patch tensors of the same cases at production shapes (K =
                 576, RC = 1024), plus 6 x 10, C=20 (K = 180, padded to 192
@@ -38,7 +41,8 @@ JSON line:
                 CPU path (plain version), batch 2, float32
   7. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
                 256), batch 2, float32, on the card against the port's CPU
-                path: every loss and every G and D gradient tensor
+                path: every loss and every G and D gradient tensor; one
+                forward and one backward launch on the 3xTF32 route
   8. fwd_bf16   generator_forward at the 3D synthesis batch of 64, bf16:
                 one tensor-core launch per forward, finite outputs,
                 slices/s
@@ -54,7 +58,14 @@ JSON line:
                 more step under torch.profiler for its top ten device
                 kernels; then the top ten of one bf16 forward at batch 64
                 (the profiler first starts after the timed steps)
- 11. ablate     the forward's stage ablation: every mode in both layouts,
+ 11. train_f32 the float32 training path, the port's and the train CLI's
+                default dtype: run_training on the same recipe with
+                compute_dtype float32, 2 warm-up and 10 timed steps, one
+                forward and one backward launch on the 3xTF32 route per
+                step, finite losses, every parameter moved; one more step
+                under torch.profiler: its device time and the attention
+                route's share of it
+ 12. ablate     the forward's stage ablation: every mode in both layouts,
                 kernel vs plain on soft attention at (2, 32, 32, 64) f32
                 (CUDA cores), (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16
                 (tensor cores, counted by attention_v2_ablate.tc_launches),
@@ -68,18 +79,22 @@ JSON line:
                 tensor-core route; the stage split its modes imply beside
                 torch.profiler's split of run(mode="full"), and no CUDA-core
                 kernel in a profiled bf16 call of every mode and of v1
- 12. timing     each kernel, its plain version and its bound, bf16, CUDA
+ 13. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
                 (kernel ms from the ablation's own timing); the forward's,
                 the backward's and v1's device time per stage
-                (torch.profiler); then the float32 (CUDA-core) route of the
-                forward, the backward, v1 and run(mode="full") at the same
-                shapes, each with its float32 bound (67 TFLOP/s, the CUDA
-                cores) and the 3xTF32 bound (495 / 3 TFLOP/s) beside it, and
-                its device time per kernel
+                (torch.profiler); then the float32 forward (with its
+                residuals, as training calls it) and backward on the 3xTF32
+                route, every float32 gate held, with their stage split, peak
+                device memory, and a profile free of CUDA-core and cuBLAS
+                GEMMs; and the float32 (CUDA-core) v1 and run(mode="full");
+                each float32 line with its float32 bound (67 TFLOP/s, the
+                CUDA cores) and the 3xTF32 bound (495 / 3 TFLOP/s)
 
-then the `kernels` line, and last the device line. Any failed check raises
+then the `kernels` line (each row with its dtype: the bf16 rows of every
+kernel, and the float32 rows of #1 and #2, whose launches are train_f32's),
+and last the device line. Any failed check raises
 and the script exits non-zero without the last line. Run from the root of
 the repository:  python3 chip_smoke.py
 """
@@ -229,15 +244,18 @@ def one_call_build_seconds():
 
 # the tensor-core GEMM kernels, by name and template arguments: the bf16
 # route's six (attention_tc.cu; lp_gemm<0> also in attention_tc_ablate.cu,
-# for the ablation's score at ring depth 4), v1's score and paste
-# (attention_tc_v1.cu), and the ablation's score at ring depth 1 and its
-# paste in each variant (0 full, 3 paste_bf16, 4 fold_norm), layout (1
-# natural, 2 phase planes) and ring depth
+# for the ablation's score at ring depth 4), the float32 route's six
+# (attention_tf32.cu, 3xTF32), v1's score and paste (attention_tc_v1.cu),
+# and the ablation's score at ring depth 1 and its paste in each variant (0
+# full, 3 paste_bf16, 4 fold_norm), layout (1 natural, 2 phase planes) and
+# ring depth
+TF32_GEMMS = {"lp_gemm_tf32<0>", "lp_gemm_tf32<1>"} | {f"pc_gemm_tf32<{k}>" for k in range(2, 6)}
 TC_GEMMS = ({"lp_gemm<0>", "lp_gemm<1>"} | {f"pc_gemm<{k}>" for k in range(2, 6)}
-            | {"v1_gemm<0>", "v1_gemm<1>", "lp_gemm_sync<0>"}
+            | TF32_GEMMS | {"v1_gemm<0>", "v1_gemm<1>", "lp_gemm_sync<0>"}
             | {f"paste_gemm<{v},{io},{ring}>" for v in (0, 3, 4)
                for io, ring in ((1, 4), (2, 4), (2, 1))})
-GEMM_MANGLED = re.compile(r"(lp_gemm_sync|lp_gemm|pc_gemm|paste_gemm|v1_gemm)I((?:Li\d+E)+)E")
+GEMM_MANGLED = re.compile(
+    r"(lp_gemm_sync|lp_gemm_tf32|lp_gemm|pc_gemm_tf32|pc_gemm|paste_gemm|v1_gemm)I((?:Li\d+E)+)E")
 
 
 def tc_sass(path):
@@ -256,6 +274,9 @@ def tc_sass(path):
         name = f"{m.group(1)}<{args}>"
         counts = {op: body.count(op) for op in ("HGMMA", "UTMALDG")}
         check(all(counts.values()), f"build: {name} SASS lacks HGMMA or UTMALDG: {counts}")
+        if name in TF32_GEMMS:  # the products are TF32 wgmma
+            counts["HGMMA_TF32"] = len(re.findall(r"HGMMA\.\S*TF32", body))
+            check(counts["HGMMA_TF32"] == counts["HGMMA"], f"build: {name} HGMMA not TF32: {counts}")
         found.setdefault(name, []).append(counts)
     check(set(found) == TC_GEMMS, f"build: GEMM kernels {sorted(found)}, expected "
           f"{sorted(TC_GEMMS)}")
@@ -272,16 +293,27 @@ def phase_build():
          tc_sass=tc_sass(info.path), ptxas=report)
 
 
+def route_counts():
+    """The launch counters of the forward's and the backward's routes."""
+    return [getattr(fn, k) for fn in (attention_v2, attention_v2_bwd)
+            for k in ("launches", "tc_launches", "tf32_launches")]
+
+
 def phase_kernel():
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
-              (1, 6, 10, 20, "middle", torch.bfloat16)]
+              (1, 6, 10, 20, "middle", torch.bfloat16), (1, 6, 10, 20, "top", torch.float32),
+              (64, 32, 32, 64, "middle", torch.float32)]
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dt)
+        before = route_counts()
         y, s, probs, nrm = attention_v2(fd, bd, b_full, mm, hd, wd, 10.0, emit_residuals=True)
         torch.cuda.synchronize()
+        tf32 = int(dt == torch.float32)
+        check([a - n for a, n in zip(route_counts(), before)] == [1, 1 - tf32, tf32, 0, 0, 0],
+              f"kernel B{b}_{hd}x{wd}: route by dtype")
         y_r, s_r, p_r, n_r = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
         torch.cuda.synchronize()
         errs = {"y": max_err(y, y_r), "s": max_err(s, s_r), "probs": max_err(probs, p_r),
@@ -328,12 +360,17 @@ def phase_kernel_bwd():
              for band in ("middle", "bottom", "top")]
     cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
               (1, 6, 10, 20, "middle", torch.float32), (1, 6, 10, 20, "bottom", torch.bfloat16),
-              (64, 32, 32, 64, "middle", torch.bfloat16)]  # B * L = 65536 rows
+              (64, 32, 32, 64, "middle", torch.bfloat16),  # B * L = 65536 rows
+              (32, 32, 32, 64, "middle", torch.float32)]  # the recipe's batch
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         args = backward_inputs(b, hd, wd, c, band, dt)
+        before = route_counts()
         got = attention_v2_bwd(*args, hd, wd, 10.0)
         torch.cuda.synchronize()
+        tf32 = int(dt == torch.float32)
+        check([a - n for a, n in zip(route_counts(), before)] == [0, 0, 0, 1, 1 - tf32, tf32],
+              f"kernel_bwd B{b}_{hd}x{wd}: route by dtype")
         want = attention_v2_bwd_reference(*args, hd, wd, 10.0)
         torch.cuda.synchronize()
         name = f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}"
@@ -495,11 +532,12 @@ def phase_fwd_f32():
     batch = SyntheticDataset(batch_size=2, seed=0, n_volumes=2).sample_batch()
     gen_gpu = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
     gen_cpu = load_generator(PRETRAINED_NPZ, cfg, device="cpu")
-    before = attention_v2.launches
+    before = route_counts()
     with torch.no_grad():
         got = generator_forward(gen_gpu, to_device(batch, "cuda"), cfg)
         torch.cuda.synchronize()
-        check(attention_v2.launches == before + 1, "f32 forward did not launch the kernel once")
+        check([a - n for a, n in zip(route_counts(), before)] == [1, 0, 1, 0, 0, 0],
+              "f32 forward did not launch the 3xTF32 kernel once")
         want = generator_forward(gen_cpu, to_device(batch, "cpu"), cfg)
     errs = {}
     for name in ("coarse_seg", "fine_seg", "x_stage1", "x_stage2"):
@@ -525,11 +563,12 @@ def phase_grad_f32():
         state = pix2pix.init_state(cfg, seed=0, device=dev, gen_npz=PRETRAINED_NPZ)
         with torch.no_grad():
             seg[dev] = generator_forward(state.gen, to_device(batch, dev), cfg)["gen"].fine_seg.cpu()
-        before = attention_v2_bwd.launches
+        before = route_counts()
         state, losses = pix2pix.train_step(state, to_device(batch, dev), 0.0, cfg)
         if dev == "cuda":
             torch.cuda.synchronize()
-            check(attention_v2_bwd.launches == before + 1, "grad_f32: backward kernel not launched once")
+            check([a - n for a, n in zip(route_counts(), before)] == [1, 0, 1, 1, 0, 1],
+                  "grad_f32: not one forward and one backward launch on the 3xTF32 route")
         nets = {"G": state.gen, "D1": state.d1, "D2": state.d2, "D3": state.d3}
         grads = {n: {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
                  for n, m in nets.items()}
@@ -624,19 +663,32 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     return launches
 
 
-def phase_train_bf16(warmup=2, timed=20):
-    """run_training on the shipped recipe; counts read per step. One more
-    step after the timed ones runs under torch.profiler."""
+# the route counter of each training dtype, and the names of the float32
+# route's kernels (the attention's share of a float32 train step)
+TRAIN_COUNTER = {"bfloat16": "tc_launches", "float32": "tf32_launches"}
+TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "fuse_softmax_tc",
+                "split_rows", "softmax_bwd", "fuse_adj_tc", "dn2_kernel")
+
+
+def phase_train(dtype="bfloat16", warmup=2, timed=20):
+    """run_training on the shipped recipe (its own dtype bf16, or float32,
+    the train CLI's default); counts read per step. One more step after the
+    timed ones runs under torch.profiler. The launch counts are set to 0
+    just before run_training and read just after. Returns the backward's
+    launches on the dtype's route."""
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
-    per_step, marks = [], []
+    opt.compute_dtype = dtype
+    counter = TRAIN_COUNTER[dtype]
+    per_step, marks, losses_seen = [], [], []
     prof = kernel_profiler()
 
     def on_step(step, losses):
-        per_step.append((attention_v2.tc_launches, attention_v2_bwd.tc_launches))
+        per_step.append((getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)))
         torch.cuda.synchronize()  # the step's pageable batch copy waits for the card anyway
         marks.append(time.perf_counter())
+        losses_seen.append(torch.stack([v.detach().float() for v in losses.values()]))
         if step == warmup + timed:
             prof.start()
         elif step == warmup + timed + 1:
@@ -644,15 +696,19 @@ def phase_train_bf16(warmup=2, timed=20):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    attention_v2.launches = attention_v2_bwd.launches = 0
-    attention_v2.tc_launches = attention_v2_bwd.tc_launches = 0
+    for fn in (attention_v2, attention_v2_bwd):
+        fn.launches = fn.tc_launches = fn.tf32_launches = 0
     state, cfg = run_training(opt, max_steps=warmup + timed + 1, device="cuda", on_step=on_step)
     torch.cuda.synchronize()
-    fwd, bwd = attention_v2.tc_launches, attention_v2_bwd.tc_launches
+    fwd, bwd = getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)
     peak = torch.cuda.max_memory_allocated()
     steps = [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip([(0, 0)] + per_step, per_step)]
-    check(state.step == warmup + timed + 1, f"train_bf16: {state.step} steps")
-    check(all(d == (1, 1) for d in steps), f"train_bf16: tensor-core launches per step {steps}")
+    name = "train_" + {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    check(cfg.compute_dtype == dtype, f"{name}: config dtype {cfg.compute_dtype}")
+    check(state.step == warmup + timed + 1, f"{name}: {state.step} steps")
+    finite = torch.isfinite(torch.stack(losses_seen)).all(dim=1).tolist()
+    check(all(finite), f"{name}: non-finite losses at steps {[i + 1 for i, f in enumerate(finite) if not f]}")
+    check(all(d == (1, 1) for d in steps), f"{name}: {counter} per step {steps}")
     check(bwd > 0 and (fwd, bwd) == (state.step, state.step)
           and (attention_v2.launches, attention_v2_bwd.launches) == (fwd, bwd),
           f"launches {fwd}, {bwd}; both routes {attention_v2.launches}, "
@@ -661,19 +717,24 @@ def phase_train_bf16(warmup=2, timed=20):
     for net in ("gen", "d1", "d2", "d3"):
         a, b = getattr(start, net), getattr(state, net)
         for (k, p0), p1 in zip(a.named_parameters(), b.parameters()):
-            check(not torch.equal(p0, p1), f"train_bf16: {net}.{k} did not move")
+            check(not torch.equal(p0, p1), f"{name}: {net}.{k} did not move")
     seconds = marks[warmup + timed - 1] - marks[warmup - 1]
     step_ms = [(b - a) * 1e3 for a, b in zip(marks[warmup - 1:warmup + timed - 1],
                                               marks[warmup:warmup + timed])]
-    emit("train_bf16", recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
+    emit(name, recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
          batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
          timed_steps=timed, ms_per_step=seconds / timed * 1e3,
          slices_per_s=opt.batch_size * timed / seconds, step_ms=step_ms,
          step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
          max_memory_allocated_bytes=peak,
          fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
-    emit("profile", of=f"one train step of the recipe (step {warmup + timed + 1}, batch "
-         f"{opt.batch_size})", **kernel_summary(prof))
+    summary = kernel_summary(prof)
+    if dtype == "float32":
+        times = kernel_ms(prof)
+        attn = sum(ms for k, ms in times.items() if any(n in k for n in TF32_KERNELS))
+        summary.update(attention_device_ms=attn, attention_share=attn / summary["device_ms"])
+    emit("profile", of=f"one train step of the recipe, {dtype} (step {warmup + timed + 1}, batch "
+         f"{opt.batch_size})", **summary)
     return bwd
 
 
@@ -722,6 +783,21 @@ BWD_STAGES = (("dprobs", "lp_gemm<1>"), ("split_probs", "split_rows"), ("db_full
               ("softmax_bwd", "softmax_bwd"), ("fuse_adj", "fuse_adj_tc"), ("dn2", "dn2_kernel"),
               ("dfd", "pc_gemm<4>"), ("dbd", "pc_gemm<5>"))
 V1_STAGES = (("score", "v1_gemm<0>"), ("fuse_softmax", "fuse_softmax_tc"), ("paste", "v1_gemm<1>"))
+# the float32 (3xTF32) route's stages: the same, plus the split of the
+# feature maps into TF32 halves
+FWD_STAGES_TF32 = (("split", "split_kernel"), ("norm", "patch_norm"), ("score", "lp_gemm_tf32<0>"),
+                   ("fuse_softmax", "fuse_softmax_tc"), ("paste", "pc_gemm_tf32<2>"))
+BWD_STAGES_TF32 = (("split", "split_kernel"), ("dprobs", "lp_gemm_tf32<1>"),
+                   ("split_probs", "split_rows"), ("db_full", "pc_gemm_tf32<3>"),
+                   ("softmax_bwd", "softmax_bwd"), ("fuse_adj", "fuse_adj_tc"),
+                   ("dn2", "dn2_kernel"), ("dfd", "pc_gemm_tf32<4>"), ("dbd", "pc_gemm_tf32<5>"))
+STAGES = {("fwd", torch.bfloat16): FWD_STAGES, ("bwd", torch.bfloat16): BWD_STAGES,
+          ("v1", torch.bfloat16): V1_STAGES, ("fwd", torch.float32): FWD_STAGES_TF32,
+          ("bwd", torch.float32): BWD_STAGES_TF32}
+# kernels no float32 attention_v2 / attention_v2_bwd call may launch: the
+# first float32 route's CUDA-core GEMMs, and any library GEMM
+NOT_F32_ROUTE = re.compile(r"score_kernel|paste_kernel|dprobs_kernel|dbfull_kernel|"
+                           r"score_bwd_kernel|fuse_adj_norm|gemm|xmma|cublas|cutlass", re.I)
 
 
 def profile_ms(fn, calls=5):
@@ -817,23 +893,53 @@ def timed(kernel, plain, reps, plain_reps):
 
 def emit_timing(name, shape, dtype, kernel_ms, plain_ms, bound, err, device_ms, **extra):
     """One `timing` line; returns the kernels-line row (the faster window of
-    each). device_ms: device ms per stage (bf16) or per kernel (float32,
-    which also gets its 3xTF32 bound)."""
+    each). device_ms: device ms per stage (tensor-core routes) or per kernel
+    (CUDA-core ones). float32 also gets its 3xTF32 bound, which its row
+    carries as bound_ms."""
     bms, bound_by, flops, nbytes = bound
     ms = min(kernel_ms)
+    row = dict(ms=ms, plain_ms=min(plain_ms), bound_ms=bms, bound_by=bound_by, max_abs_err=err,
+               dtype=str(dtype).split(".")[-1])
     if dtype == torch.float32:
         tf32_ms, tf32_by = _bound(flops, nbytes, PEAK_3XTF32)
         extra.update(bound_3xtf32_ms=tf32_ms, bound_3xtf32_by=tf32_by,
                      roofline_share_3xtf32=tf32_ms / ms)
+        row.update(bound_ms=tf32_ms, bound_by=tf32_by)
     emit("timing", kernel=name, shape=shape, dtype=str(dtype), kernel_ms=kernel_ms,
          plain_ms=plain_ms, bound_ms=bms, bound_by=bound_by, flops=flops, bytes=nbytes,
          roofline_share=bms / ms, max_abs_err=err, device_ms=device_ms, **extra)
-    return dict(ms=ms, plain_ms=min(plain_ms), bound_ms=bms, bound_by=bound_by, max_abs_err=err)
+    return row
 
 
-def device_ms(kernel, stages, dtype):
-    """The bf16 route's stage split, or the float32 route's time per kernel."""
-    return stage_split(kernel, stages) if dtype == torch.bfloat16 else profile_ms(kernel)
+def device_ms(kernel, which, dtype):
+    """The stage split of a tensor-core route (STAGES), or the time per
+    kernel of a CUDA-core one (float32 v1 and the ablation); and the names
+    of the kernels launched."""
+    times = profile_ms(kernel)
+    stages = STAGES.get((which, dtype))
+    return (times if stages is None else by_stage(times, stages)), sorted(times)
+
+
+def f32_route_only(names, what):
+    """A float32 call of the attention launched the 3xTF32 route's kernels
+    and no CUDA-core or library GEMM."""
+    bad = [k for k in names if NOT_F32_ROUTE.search(k)
+           and not any(g in k for g in ("lp_gemm_tf32", "pc_gemm_tf32"))]
+    check(not bad, f"{what}: float32 call launched {bad}")
+    check(any("lp_gemm_tf32" in k for k in names) and any("pc_gemm_tf32" in k for k in names),
+          f"{what}: no 3xTF32 GEMM in {names}")
+
+
+def peak_bytes(fn):
+    """Device memory fn allocates at its peak, above what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
 
 
 # Inputs of the timing phases: fd unscaled for bf16 (near one-hot
@@ -844,18 +950,33 @@ def timing_fscale(dtype):
 
 
 def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    """The forward: bf16 as serving calls it, float32 with its residuals,
+    as training calls it (the route's every output then held at its
+    gate)."""
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
-    kernel = lambda: attention_v2(fd, bd, b_full, mm, hd, wd)
-    plain = lambda: attention_v2_reference(fd, bd, b_full, mm, hd, wd)
+    f32 = dtype == torch.float32
+    kernel = lambda: attention_v2(fd, bd, b_full, mm, hd, wd, emit_residuals=f32)
+    plain = lambda: attention_v2_reference(fd, bd, b_full, mm, hd, wd, emit_residuals=f32)
+    extra = {}
     with torch.no_grad():
-        y, y_ref = kernel(), plain()
+        got, want = kernel(), plain()
+        y, y_ref = (got[0], want[0]) if f32 else (got, want)
         err = max_err(y, y_ref)
         check(y_within(y, y_ref, dtype), f"timing shape: y err {err}")
+        if f32:
+            errs = {"s": max_err(got[1], want[1]), "probs": max_err(got[2], want[2]),
+                    "nrm_rel": float(((got[3] - want[3]).abs() / want[3].abs().clamp_min(1e-6)).max())}
+            for k, e in errs.items():
+                check(e <= TOL[k], f"timing shape: {k} err {e}")
+            extra.update(residual_errs=errs, peak_bytes_above_inputs=peak_bytes(kernel))
+        del got, want, y, y_ref
         kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
-        stages = device_ms(kernel, FWD_STAGES, dtype)
+        stages, names = device_ms(kernel, "fwd", dtype)
+    if f32:
+        f32_route_only(names, "timing attention_v2")
     return emit_timing("attention_v2", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
-                       bound_ms(b, hd, wd, c, dtype), err, stages)
+                       bound_ms(b, hd, wd, c, dtype), err, stages, kernels=names, **extra)
 
 
 def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
@@ -866,10 +987,16 @@ def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     results = [bwd_within(g, w, dtype) for g, w in zip(got, want)]
     err = max(r[1] for r in results)
     check(all(r[0] for r in results), f"timing shape: backward errs {results}")
+    del got, want
+    extra = {}
+    if dtype == torch.float32:
+        extra["peak_bytes_above_inputs"] = peak_bytes(kernel)
     kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
+    stages, names = device_ms(kernel, "bwd", dtype)
+    if dtype == torch.float32:
+        f32_route_only(names, "timing attention_v2_bwd")
     return emit_timing("attention_v2_bwd", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
-                       bwd_bound_ms(b, hd, wd, c, dtype), err,
-                       device_ms(kernel, BWD_STAGES, dtype))
+                       bwd_bound_ms(b, hd, wd, c, dtype), err, stages, kernels=names, **extra)
 
 
 def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
@@ -884,7 +1011,7 @@ def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
     return emit_timing("attention_scores_paste", [b, hd * wd, 9 * c, 16 * c], dtype, kernel_ms,
                        plain_ms, v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype), err,
-                       device_ms(kernel, V1_STAGES, dtype))
+                       device_ms(kernel, "v1", dtype)[0])
 
 
 def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
@@ -917,7 +1044,7 @@ def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     for name, (_, layout, key) in calls.items():
         plain_ms = min(first[layout], second[layout])
         rows[name] = dict(ms=result["ms"][key], plain_ms=plain_ms, bound_ms=bms,
-                          bound_by=bound_by, max_abs_err=errs[name])
+                          bound_by=bound_by, max_abs_err=errs[name], dtype="bfloat16")
         emit("timing", kernel=f"attn_ablate.{name}", mode="full", shape=[b, hd, wd, c],
              dtype=str(dtype), kernel_ms=result["ms"][key], plain_ms=[first[layout], second[layout]],
              bound_ms=bms, bound_by=bound_by, flops=flops, bytes=nbytes,
@@ -963,7 +1090,8 @@ def main():
     gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
     phase_fwd_bf16(gen, cfg)
     launches = phase_synth3d(gen, cfg)
-    bwd_launches = phase_train_bf16()
+    bwd_launches = phase_train("bfloat16", timed=20)
+    f32_launches = phase_train("float32", timed=10)
     phase_profile_fwd(gen, cfg)
     del gen
     ablation, ablate_launches = phase_ablate()
@@ -971,37 +1099,32 @@ def main():
     tb = phase_timing_bwd()
     t1 = phase_timing_v1()
     ta = phase_timing_ablate(ablation)
-    phase_timing(dtype=torch.float32)
-    phase_timing_bwd(dtype=torch.float32)
+    tf = phase_timing(dtype=torch.float32)
+    tfb = phase_timing_bwd(dtype=torch.float32)
     phase_timing_v1(dtype=torch.float32)
     phase_timing_ablate_f32()
-    rows = [dict(name="attention_scores_paste", source="healthivert_tpu_torch/csrc/attention_tc_v1.cu",
-                 replaces="healthivert_tpu/ops/attention_pallas.py:199",
-                 launches=ablate_launches["attention_scores_paste"], **t1)]
-    rows += [dict(name=f"attn_ablate.{name}",
-                  source="healthivert_tpu_torch/csrc/attention_tc_ablate.cu",
+    src = "healthivert_tpu_torch/csrc/"
+    pallas = "healthivert_tpu/ops/attention_pallas.py"
+    rows = [dict(name="attention_v2", source=src + "attention_tc.cu", replaces=f"{pallas}:476",
+                 launches=launches, **t),
+            dict(name="attention_v2_bwd", source=src + "attention_tc.cu", replaces=f"{pallas}:772",
+                 launches=bwd_launches, **tb),
+            dict(name="attention_v2", source=src + "attention_tf32.cu", replaces=f"{pallas}:476",
+                 launches=f32_launches, **tf),
+            dict(name="attention_v2_bwd", source=src + "attention_tf32.cu",
+                 replaces=f"{pallas}:772", launches=f32_launches, **tfb),
+            dict(name="attention_scores_paste", source=src + "attention_tc_v1.cu",
+                 replaces=f"{pallas}:199", launches=ablate_launches["attention_scores_paste"],
+                 **t1)]
+    rows += [dict(name=f"attn_ablate.{name}", source=src + "attention_tc_ablate.cu",
                   replaces=f"experiments/attn_ablate.py:{line}",
                   launches=ablate_launches[name], **ta[name])
              for name, line in ABLATE_REPLACES.items()]
     print(json.dumps({"kernels": [{
-        "name": "attention_v2", "route": "cuda",
-        "source": "healthivert_tpu_torch/csrc/attention_tc.cu",
-        "replaces": "healthivert_tpu/ops/attention_pallas.py:476",
-        "launches": launches, "max_abs_err": t["max_abs_err"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "attention_v2_bwd", "route": "cuda",
-        "source": "healthivert_tpu_torch/csrc/attention_tc.cu",
-        "replaces": "healthivert_tpu/ops/attention_pallas.py:772",
-        "launches": bwd_launches, "max_abs_err": tb["max_abs_err"], "ms": tb["ms"],
-        "plain_ms": tb["plain_ms"], "bound_ms": tb["bound_ms"], "bound_by": tb["bound_by"],
-        "library_ms": None,
-    }] + [{
-        "name": r["name"], "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-        "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None,
+        "name": r["name"], "dtype": r["dtype"], "route": "cuda", "source": r["source"],
+        "replaces": r["replaces"], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None,
     } for r in rows]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,8 +4,8 @@
 // Replaces the Pallas TPU kernels `attention_v2` / `_attention_v2_kernel`
 // (healthivert_tpu/ops/attention_pallas.py:304-549) and `attention_v2_bwd`
 // / `_attention_v2_bwd_kernel` (:597-819) for bf16 inputs, with the same
-// arguments and results as the float32 route (attention_v2.cu,
-// attention_v2_bwd.cu, which stay on the CUDA cores).
+// arguments and results as the float32 route (attention_tf32.cu, the same
+// stages in 3xTF32 on the same mainloop).
 // healthivert_tpu_torch/ops/attention_cuda.py holds the wrappers, the
 // channel padding and phase split of the inputs, the scratch planes and
 // the plain PyTorch versions.
@@ -13,7 +13,7 @@
 // What bounds it on this card: the work. Per sample (L = P = 1024, C = 64)
 // the forward is 9 + 16 shifted (L, P, C) products = 3.36 GFLOP (0.217 ms
 // at B = 64 at the 989 TFLOP/s bf16 peak) and the backward twice that
-// (0.217 ms at B = 32), against a few MB of bf16 maps. The float32 CUDA-
+// (0.217 ms at B = 32), against a few MB of bf16 maps. The first, CUDA-
 // core kernels ran at ~1.3 % of that bound: float FMAs on 67 TFLOP/s
 // cores, per-element division, modulo and bounds checks in every tile
 // loader, synchronous loads. The fuse and softmax sweeps over the (L, P)
@@ -66,105 +66,13 @@
 //             (db_full), softmax_bwd_kernel (attention_v2_common.cuh),
 //             fuse_adj_tc_kernel (ds0 and its transpose, hi/lo, and the norm
 //             row sums), dn2_kernel, pc_gemm (dfd), pc_gemm (dbd, with the
-//             norm term 2 bd box(dn2) in its epilogue)
+//             norm term 2 bd box(dn2) in its epilogue); the sweeps are in
+//             attention_tc_kernels.cuh too, shared with the float32 route
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "attention_tc_kernels.cuh"
-
-namespace {
-
-// hi/lo planes (B, L, kp) of a float (B, L, P) matrix, columns at their
-// padded positions, zero at phantoms. Grid (B * L): one block a row, on
-// grid x, whose limit (2^31 - 1) no batch reaches; 256 threads.
-__global__ void __launch_bounds__(256)
-split_rows_kernel(const float* __restrict__ x, bf16* __restrict__ hi, bf16* __restrict__ lo,
-                  Geom g) {
-  const int L = g.L();
-  const size_t row = blockIdx.x;
-  for (int q = threadIdx.x; q < g.kp; q += 256) {
-    const int p = g.real(q);
-    const float v = p >= 0 ? x[row * L + p] : 0.f;
-    split(v, hi[row * g.kp + q], lo[row * g.kp + q]);
-  }
-}
-
-// Fuse adjoint over a 64 x 64 tile of padded (row a, column c) positions:
-// ds0 = fuse_adjoint_at(dfused, a, c) / max(nrm_raw[a], 1e-4), written in
-// hi and lo bf16 both as ds0 (B, L, kp), row a, and as its transpose ds0T
-// (B, P, kp), row c; zero at phantoms. rowsum[b, a] += sum_c ds * s[a, c]
-// (zeroed beforehand): the norm's gradient before dn2_kernel. Grid (kp / 64,
-// kp / 64, B), block (32, 8).
-__global__ void __launch_bounds__(SM_COLS * SM_ROWS)
-fuse_adj_tc_kernel(const float* __restrict__ dfused, const float* __restrict__ s,
-                   const float* __restrict__ nrm_raw, bf16* __restrict__ ds_hi,
-                   bf16* __restrict__ ds_lo, bf16* __restrict__ dst_hi,
-                   bf16* __restrict__ dst_lo, float* __restrict__ rowsum, Geom g) {
-  using namespace hv_attn;
-  __shared__ __align__(16) bf16 tile[2][BK][ROW_PAD];
-  const int L = g.L();
-  const int b = blockIdx.z;
-  const int c0 = blockIdx.x * BK, a0 = blockIdx.y * BK;
-  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SM_COLS + tx;
-  const float* fb = dfused + (size_t)b * L * L;
-  const int cols[2] = {g.real(c0 + tx), g.real(c0 + tx + 32)};
-
-  for (int ar = ty; ar < BK; ar += SM_ROWS) {
-    const int a = g.real(a0 + ar);
-    float part = 0.f;
-    const float nrm = a >= 0 ? fmaxf(nrm_raw[(size_t)b * L + a], 1e-4f) : 1.f;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float v = 0.f;
-      if (a >= 0 && cols[e] >= 0) {
-        const float ds = fuse_adjoint_at(fb, a, cols[e], g.wd, L);
-        part += ds * s[((size_t)b * L + a) * L + cols[e]];
-        v = ds / nrm;
-      }
-      split(v, tile[0][ar][tx + 32 * e], tile[1][ar][tx + 32 * e]);
-    }
-    for (int off = 16; off > 0; off /= 2) part += __shfl_down_sync(0xffffffffu, part, off);
-    if (tx == 0 && a >= 0) atomicAdd(rowsum + (size_t)b * L + a, part);
-  }
-  __syncthreads();
-  // rows a: 64 rows of 8 16-byte chunks a plane, two per thread
-  for (int k = tid; k < BK * 8; k += SM_COLS * SM_ROWS) {
-    const int ar = k / 8, chunk = k % 8;
-    const int a = g.real(a0 + ar);
-    if (a < 0) continue;
-    const size_t at = ((size_t)b * L + a) * g.kp + c0 + chunk * 8;
-    *reinterpret_cast<uint4*>(ds_hi + at) = *reinterpret_cast<const uint4*>(&tile[0][ar][chunk * 8]);
-    *reinterpret_cast<uint4*>(ds_lo + at) = *reinterpret_cast<const uint4*>(&tile[1][ar][chunk * 8]);
-  }
-  // rows c of the transpose: a column of the tile, gathered 8 values a chunk
-  for (int k = tid; k < BK * 8; k += SM_COLS * SM_ROWS) {
-    const int cr = k / 8, chunk = k % 8;
-    const int c = g.real(c0 + cr);
-    if (c < 0) continue;
-    const size_t at = ((size_t)b * L + c) * g.kp + a0 + chunk * 8;
-#pragma unroll
-    for (int plane = 0; plane < 2; ++plane) {
-      __align__(16) bf16 v[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = tile[plane][chunk * 8 + e][cr];
-      *reinterpret_cast<uint4*>((plane ? dst_lo : dst_hi) + at) = *reinterpret_cast<const uint4*>(v);
-    }
-  }
-}
-
-// dn2 = -rowsum / nrm * 0.5 / nrm_raw where nrm_raw > 1e-4, else 0 (as the
-// float32 route's fuse_adj_norm_kernel).
-__global__ void dn2_kernel(const float* __restrict__ rowsum, const float* __restrict__ nrm_raw,
-                           float* __restrict__ dn2, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float nr = nrm_raw[i];
-  const float dn = -rowsum[i] / fmaxf(nr, 1e-4f);
-  dn2[i] = nr > 1e-4f ? dn * 0.5f / fmaxf(nr, 1e-12f) : 0.f;
-}
-
-}  // namespace
 
 // The bf16 forward. fd_p, bd_p (B, hd, wd, Cp) and bph (B, 4, hd, wd, Cp),
 // the phase planes of b_full, all bf16 with the channels zero-padded to Cp;
@@ -230,7 +138,7 @@ extern "C" int hv_attention_tc_backward(const void* fd_p, const void* bd_p, cons
   bf16* lo = static_cast<bf16*>(pl_lo);
 
   HV_TRY(launch_lp<kDprobs>(m_bph, m_dyph_n, g, B, nullptr, grad, st));
-  split_rows_kernel<<<B * L, 256, 0, st>>>(probs, hi, lo, g);
+  split_rows_kernel<bf16><<<B * L, 256, 0, st>>>(probs, hi, lo, g);
   HV_TRY(static_cast<int>(cudaGetLastError()));
   HV_TRY(launch_pc<kDbfull>(m_hi, m_lo, m_dyph, g, B, nullptr, nullptr, db_full, st));
   hv_attn::softmax_bwd_kernel<><<<dim3((L + SM_COLS - 1) / SM_COLS, B), dim3(SM_COLS, SM_ROWS),
@@ -238,7 +146,7 @@ extern "C" int hv_attention_tc_backward(const void* fd_p, const void* bd_p, cons
   HV_TRY(static_cast<int>(cudaGetLastError()));
   HV_TRY(static_cast<int>(cudaMemsetAsync(rowsum, 0, sizeof(float) * B * L, st)));
   // ds0 goes into the planes that held probs: db_full has read them
-  fuse_adj_tc_kernel<<<dim3(kp / BK, kp / BK, B), dim3(SM_COLS, SM_ROWS), 0, st>>>(
+  fuse_adj_tc_kernel<bf16><<<dim3(kp / BK, kp / BK, B), dim3(SM_COLS, SM_ROWS), 0, st>>>(
       grad, s, nrm_raw, hi, lo, static_cast<bf16*>(plt_hi), static_cast<bf16*>(plt_lo), rowsum, g);
   HV_TRY(static_cast<int>(cudaGetLastError()));
   dn2_kernel<<<(B * L + 255) / 256, 256, 0, st>>>(rowsum, nrm_raw, dn2, B * L);

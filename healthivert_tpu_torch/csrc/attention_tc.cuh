@@ -1,14 +1,26 @@
-// The tensor-core GEMM mainloop of the bf16 route of the contextual
-// attention (attention_tc.cu): one kernel template, six GEMMs, and the
-// stage ablation's variants of two of them (attention_tc_ablate.cu).
+// The tensor-core GEMM mainloop of the contextual attention: the bf16
+// route (attention_tc.cu: one kernel template, six GEMMs, and the stage
+// ablation's variants of two of them in attention_tc_ablate.cu) and the
+// float32 route (attention_tf32.cu: the same six GEMMs in 3xTF32).
 //
-// Every operand is a bf16 tile of 64-element (128-byte) rows, loaded by TMA
-// into shared memory in the 128-byte swizzle that wgmma reads. One thread
-// keeps a ring of STAGES tiles in flight, each completing on its own `full`
-// mbarrier; one warpgroup (128 threads) issues wgmma.mma_async m64nNk16 on
-// the tiles that have arrived and keeps the float32 sums in registers. Each
-// warp arrives on a stage's `empty` mbarrier once its products have read
-// the stage, and the loading thread waits for all four before refilling it.
+// Every operand is a tile of 128-byte rows (64 bf16 or 32 float32 values),
+// loaded by TMA into shared memory in the 128-byte swizzle that wgmma reads.
+// One thread keeps a ring of OP::STAGES stages in flight, each completing on
+// its own `full` mbarrier; one warpgroup (128 threads) issues
+// wgmma.mma_async on the tiles that have arrived (m64nNk16 in bf16, m64nNk8
+// in TF32: either way four 32-byte K steps a row) and keeps the float32
+// sums in registers. Each warp arrives on a stage's `empty` mbarrier once
+// its products have read the stage, and the loading thread waits for all
+// four before refilling it.
+//
+// The element type is a trait of the OP (`TF32`). A bf16 OP multiplies one
+// B tile by its one or two A tiles (the hi and lo halves of a split
+// operand). A TF32 OP holds each float32 operand as two tiles, big =
+// tf32(x) and small = tf32(x - big), and runs the 3xTF32 products small big
+// + big small + big big per K step, in that order, the small terms first
+// (`split_tf32`). TF32 wgmma reads K-major operands only; an OP whose B
+// arrives MN-major (`TRANSFORM`) rewrites it K-major, split, in shared
+// memory before its products (attention_tf32.cu).
 //
 // The 2-D shifts of the attention (the 9 window offsets of the score, the
 // 4 or 16 taps of the paste) are TMA coordinates: each operand is a tensor
@@ -32,12 +44,28 @@
 namespace hv_tc {
 
 constexpr int BK = 64;       // K chunk: one 128-byte swizzle row of bf16
+constexpr int BK_F32 = 32;   // the same row of float32
 constexpr int BM = 64;       // rows of a tile: one wgmma m64
 constexpr int STAGES = 4;
 constexpr int THREADS = 128;  // one warpgroup
-constexpr int TILE_BYTES = BM * BK * 2;     // 8 KiB: a 64 x 64 bf16 tile
+constexpr int TILE_BYTES = BM * BK * 2;     // 8 KiB: 64 rows of 128 bytes
 constexpr int STAGE_BYTES = 3 * TILE_BYTES;  // 24 KiB: A, A or B, B
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + alignment slack
+
+// The ring and element type of the bf16 OPs (each derives from it): bf16
+// tiles, wgmma k16, one B tile, STAGES stages of STAGE_BYTES.
+struct Bf16Ring {
+  static constexpr bool TF32 = false;
+  static constexpr bool TRANSFORM = false;
+  static constexpr int STAGES = hv_tc::STAGES;
+  static constexpr int STAGE_BYTES = hv_tc::STAGE_BYTES;
+};
+
+// Dynamic shared memory of a GEMM kernel over OP's ring.
+template <class OP>
+constexpr int smem_bytes() {
+  return OP::STAGES * OP::STAGE_BYTES + 1024;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -184,7 +212,56 @@ __device__ __forceinline__ void wgmma_n64_ra(float (&d)[32], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "n"(TRANS_B), "r"(accumulate));
 }
 
+// The TF32 forms, one 8-deep step: A (64 x 8) and B (8 x N) from shared
+// memory, both K-major (TF32 wgmma has no transpose).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n"
+      "}\n"
+      : HV_F8(0), HV_F8(8), HV_F8(16), HV_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n"
+      "}\n"
+      : HV_F8(0), HV_F8(8), HV_F8(16), HV_F8(24), HV_F8(32), HV_F8(40), HV_F8(48), HV_F8(56)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 #undef HV_F8
+
+// The 3xTF32 split of a float32 value: big = tf32(v), small = tf32(v -
+// big), each rounded to nearest (cvt.rna, ties away from zero) with the
+// low 13 mantissa bits zero, which the tensor cores would otherwise drop.
+// |v - big - small| <= 2^-22 |v|, and the dropped small * small is below
+// 2^-22 |v w| too.
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+__device__ __forceinline__ void split_tf32(float v, float& big, float& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - big);
+}
 
 // Row and column of accumulator register i of thread `tid` in an m64nN
 // tile: warp w owns rows 16w..16w+15; register 4j+q holds row lane/4 (+8
@@ -204,24 +281,40 @@ __device__ __forceinline__ int a_frag_col(int tid, int q) {
   return (q >> 1) * 8 + (tid % 4) * 2;
 }
 
-// The products of one stage (BK deep) into acc; the first product of the
-// GEMM (it == 0) overwrites the sums.
+// The products of one stage (one 128-byte row deep: 64 bf16 or 32 TF32
+// values, four 32-byte steps) into acc; the first product of the GEMM (it
+// == 0) overwrites the sums. TF32: A big and small at 0 and TILE_BYTES, B
+// big and small at B_OFF and B_OFF + BN rows of 128 bytes, all K-major.
 template <class OP>
 __device__ __forceinline__ void stage_products(uint32_t st, int it, float (&acc)[OP::BN / 2]) {
   constexpr int B_OFF = OP::NA * TILE_BYTES;
+  if constexpr (OP::TF32) {
+    constexpr int B_TILE = OP::BN * 128;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = desc_sw128(st + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t a_big = desc_sw128(st + kk * 32);
+      const uint64_t a_small = desc_sw128(st + TILE_BYTES + kk * 32);
+      const uint64_t b_big = desc_sw128(st + B_OFF + kk * 32);
+      const uint64_t b_small = desc_sw128(st + B_OFF + B_TILE + kk * 32);
+      wgmma_tf32(acc, a_small, b_big, it > 0 || kk > 0);
+      wgmma_tf32(acc, a_big, b_small, 1);
+      wgmma_tf32(acc, a_big, b_big, 1);
+    }
+  } else {
 #pragma unroll
-    for (int a = 0; a < OP::NA; ++a) {
-      const uint64_t da = desc_sw128(st + a * TILE_BYTES + kk * 32);
-      // the first product overwrites the sums: no zero fill of the
-      // registers, which would serialise the wgmma pipeline
-      const int accumulate = it > 0 || kk > 0 || a > 0;
-      if constexpr (OP::BN == 128) {
-        wgmma_n128<OP::TRANS_B>(acc, da, db, accumulate);
-      } else {
-        wgmma_n64<OP::TRANS_B>(acc, da, db, accumulate);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = desc_sw128(st + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
+#pragma unroll
+      for (int a = 0; a < OP::NA; ++a) {
+        const uint64_t da = desc_sw128(st + a * TILE_BYTES + kk * 32);
+        // the first product overwrites the sums: no zero fill of the
+        // registers, which would serialise the wgmma pipeline
+        const int accumulate = it > 0 || kk > 0 || a > 0;
+        if constexpr (OP::BN == 128) {
+          wgmma_n128<OP::TRANS_B>(acc, da, db, accumulate);
+        } else {
+          wgmma_n64<OP::TRANS_B>(acc, da, db, accumulate);
+        }
       }
     }
   }
@@ -252,6 +345,14 @@ __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st
     wgmma_commit();
     wgmma_wait<0>();
   } else {
+    if constexpr (OP::TRANSFORM) {
+      // every thread rewrites its share of the stage's B operand; the
+      // generic-proxy stores are made visible to wgmma's async proxy, and
+      // the warpgroup meets, before any product reads them
+      op.transform(st);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
     wgmma_fence();
     stage_products<OP>(smem_u32(st), it, acc);
     wgmma_commit();
@@ -261,6 +362,10 @@ __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st
 // The mainloop. OP supplies
 //   static constexpr int BN, NA (1 or 2 A tiles per stage, summed into one
 //   product: the hi and lo halves of a split operand), TRANS_B;
+//   static constexpr bool TF32 (see stage_products), TRANSFORM (and then
+//   void transform(uint8_t* stage) const, run by every thread once the
+//   stage has arrived; see issue_products);
+//   static constexpr int STAGES, STAGE_BYTES: the ring (Bf16Ring for bf16);
 //   static constexpr bool REG_A (and then void fragments(int it, const
 //   uint8_t* stage, uint32_t (&frag)[BK / 16][2][4]) const, run by every
 //   thread; see issue_products);
@@ -269,20 +374,21 @@ __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st
 //     (issues the stage's TMA loads on `bar`, thread 0 only);
 //   uint32_t stage_bytes() const;
 // and returns the sums in acc (the kernel's epilogue writes them out). Each
-// stage holds A tiles at 0 and TILE_BYTES and the B tile at B_OFF.
+// stage holds A tiles at 0 and TILE_BYTES and the B tile(s) at B_OFF.
 template <class OP>
 __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2]) {
   constexpr int B_OFF = OP::NA * TILE_BYTES;
+  constexpr int NST = OP::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t full[STAGES];
-  __shared__ __align__(8) uint64_t empty[STAGES];
+  __shared__ __align__(8) uint64_t full[NST];
+  __shared__ __align__(8) uint64_t empty[NST];
   // the 128-byte swizzle repeats every 1024 bytes: align the ring to it
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x;
   const int n_it = op.iters();
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NST; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], THREADS / 32);
     }
@@ -290,19 +396,19 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
   }
   __syncthreads();
   auto issue = [&](int it) {
-    const int s = it % STAGES;
-    uint8_t* st = smem + s * STAGE_BYTES;
+    const int s = it % NST;
+    uint8_t* st = smem + s * OP::STAGE_BYTES;
     mbar_expect_tx(&full[s], op.stage_bytes());
     op.load(it, st, st + TILE_BYTES, st + B_OFF, &full[s]);
   };
   if (tid == 0) {
-    for (int it = 0; it < STAGES && it < n_it; ++it) issue(it);
+    for (int it = 0; it < NST && it < n_it; ++it) issue(it);
   }
   for (int it = 0; it < n_it; ++it) {
-    const int s = it % STAGES;
-    mbar_wait(&full[s], (it / STAGES) & 1);
+    const int s = it % NST;
+    mbar_wait(&full[s], (it / NST) & 1);
     fence_acc(acc);
-    issue_products(op, it, smem + s * STAGE_BYTES, acc);
+    issue_products(op, it, smem + s * OP::STAGE_BYTES, acc);
     // one group stays in flight; this warp's products of the previous one
     // are done, so it releases that stage. The stage is refilled once all
     // four warps have released it: wait_group orders only its own warp.
@@ -310,10 +416,10 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
     fence_acc(acc);
     if (it >= 1) {
       const int prev = it - 1;
-      if (tid % 32 == 0) mbar_arrive(&empty[prev % STAGES]);
-      if (tid == 0 && prev + STAGES < n_it) {
-        mbar_wait(&empty[prev % STAGES], (prev / STAGES) & 1);
-        issue(prev + STAGES);
+      if (tid % 32 == 0) mbar_arrive(&empty[prev % NST]);
+      if (tid == 0 && prev + NST < n_it) {
+        mbar_wait(&empty[prev % NST], (prev / NST) & 1);
+        issue(prev + NST);
       }
     }
   }

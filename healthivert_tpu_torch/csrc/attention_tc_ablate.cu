@@ -6,9 +6,8 @@
 // `run_padded` (:289) over `_kernel` (:52-243), `run_auto` (:466) over
 // `_kernel_auto` (:326-462) and `run_fold` (:657) over `_kernel_fold`
 // (:504-653). float32 inputs keep the CUDA-core ablation
-// (attention_v2_ablate.cu), as the float32 forward keeps the CUDA-core
-// route. healthivert_tpu_torch/experiments/attn_ablate.py holds the
-// wrappers and the plain PyTorch version of every mode.
+// (attention_v2_ablate.cu). healthivert_tpu_torch/experiments/attn_ablate.py
+// holds the wrappers and the plain PyTorch version of every mode.
 //
 // Each mode runs the bf16 forward of attention_tc.cu (its kernels, from
 // attention_tc_kernels.cuh) with one stage dropped or changed, the mode

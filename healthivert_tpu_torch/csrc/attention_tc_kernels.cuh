@@ -1,14 +1,20 @@
-// The forward's pieces of the bf16 tensor-core route (attention_tc.cu),
-// shared with its stage ablation (attention_tc_ablate.cu): the grid
-// geometry, the score and paste GEMMs on the mainloop of attention_tc.cuh,
-// the fuse + softmax sweep, and the tensor maps. The forward instantiates
-// every template at its defaults; the ablation's modes and layouts are
-// further instantiations, and put no branch into the forward's kernels.
+// The pieces of the tensor-core routes of the contextual attention: the
+// grid geometry, the score and paste GEMMs of the bf16 route on the
+// mainloop of attention_tc.cuh and the epilogues of every GEMM, the sweeps
+// between the GEMMs (fuse + softmax, the split of probs, the fuse
+// adjoint), and the tensor maps. The bf16 route (attention_tc.cu)
+// instantiates every template at its defaults; its stage ablation
+// (attention_tc_ablate.cu) and v1 (attention_tc_v1.cu) add bf16
+// instantiations, and the float32 route (attention_tf32.cu) instantiates
+// the sweeps with float32 planes (PT = float) and the maps over float32.
+// None of them puts a branch into another's kernels.
 //
 // Everything here has internal linkage (the top-level anonymous namespace,
 // which the including file's own code shares): each translation unit that
 // includes the file compiles and registers its own copy of each kernel.
 #pragma once
+
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -58,7 +64,7 @@ enum PasteIO : int { kPlanesToNatural = 0, kNaturalToNatural, kPlanesToPlanes };
 // tap. score: 9 window taps of bd (A) and fd (B); dprobs: the 16 paste taps
 // of the phase planes of b_full (A) and dy (B).
 template <int KIND>
-struct LPOp {
+struct LPOp : Bf16Ring {
   static constexpr int BN = 128, NA = 1, TRANS_B = 0;
   static constexpr bool REG_A = false;
   const CUtensorMap* ma;
@@ -80,22 +86,13 @@ struct LPOp {
   }
 };
 
-// One (L, P) tile: out[b, l, p] (B, L, P) float, the score divided by
-// max(nrm_raw[l], 1e-4), or dprobs / 4. NSTAGES: the ring depth (STAGES, or
-// 1 for mainloop_sync).
-template <int KIND, int NSTAGES>
-__device__ __forceinline__ void lp_tile(const CUtensorMap& ma, const CUtensorMap& mb,
-                                        const Geom& g, const float* __restrict__ nrm_raw,
-                                        float* __restrict__ out) {
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * 128;
-  const LPOp<KIND> op{&ma, &mb, b, m0 / g.wdp, m0 % g.wdp, n0 / g.wdp, n0 % g.wdp, g.Cp / BK};
-  float acc[64];
-  if constexpr (NSTAGES == 1) {
-    mainloop_sync(op, acc);
-  } else {
-    mainloop(op, acc);
-  }
+// The epilogue of an (L, P) tile at rows m0, columns n0 of sample b:
+// out[b, l, p] (B, L, P) float, the score divided by max(nrm_raw[l],
+// 1e-4), or dprobs / 4.
+template <int KIND>
+__device__ __forceinline__ void lp_store(const float (&acc)[64], const Geom& g, int b, int m0,
+                                         int n0, const float* __restrict__ nrm_raw,
+                                         float* __restrict__ out) {
   const int tid = threadIdx.x;
   const int L = g.L();
 #pragma unroll
@@ -117,6 +114,25 @@ __device__ __forceinline__ void lp_tile(const CUtensorMap& ma, const CUtensorMap
   }
 }
 
+// One (L, P) tile of the bf16 route. NSTAGES: the ring depth (STAGES, or 1
+// for mainloop_sync).
+template <int KIND, int NSTAGES>
+__device__ __forceinline__ void lp_tile(const CUtensorMap& ma, const CUtensorMap& mb,
+                                        const Geom& g, const float* __restrict__ nrm_raw,
+                                        float* __restrict__ out) {
+  const int b = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * 128;
+  const LPOp<KIND> op{{}, &ma, &mb, b, m0 / g.wdp, m0 % g.wdp, n0 / g.wdp, n0 % g.wdp,
+                      g.Cp / BK};
+  float acc[64];
+  if constexpr (NSTAGES == 1) {
+    mainloop_sync(op, acc);
+  } else {
+    mainloop(op, acc);
+  }
+  lp_store<KIND>(acc, g, b, m0, n0, nrm_raw, out);
+}
+
 // Grid (ceil(hd wdp / 128), ceil(hd wdp / 64), B).
 template <int KIND>
 __global__ void __launch_bounds__(THREADS)
@@ -128,6 +144,10 @@ lp_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensor
 __device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
   hi = __float2bfloat16(v);
   lo = __float2bfloat16(v - __bfloat162float(hi));
+}
+// The float32 route's planes: big and small TF32 halves, kept in float32.
+__device__ __forceinline__ void split(float v, float& big, float& small) {
+  split_tf32(v, big, small);
 }
 
 // (P, C) GEMMs, M = output positions, N = 64 channels, K = taps x kp: A is
@@ -145,7 +165,7 @@ __device__ __forceinline__ void split(float v, bf16& hi, bf16& lo) {
 // (`fragments`, wgmma's register-A form) before the products. IO: see
 // PasteIO.
 template <int KIND, int VAR = kFull, int IO = kPlanesToNatural>
-struct PCOp {
+struct PCOp : Bf16Ring {
   static constexpr int BN = 64, NA = VAR == kPasteBf16 ? 1 : 2, TRANS_B = 1;
   static constexpr bool REG_A = VAR == kFoldNorm;
   static constexpr bool PASTE = KIND == kPaste || KIND == kDbfull;
@@ -213,28 +233,17 @@ struct PCOp {
   }
 };
 
-// One (P, C) tile; out in bf16 with C channels: (B, 2hd, 2wd, C) for paste
-// and db_full (or phase planes (B, 2, 2, hd, wd, C), kPlanesToPlanes),
-// (B, hd, wd, C) else.
-template <int KIND, int VAR, int IO, int NSTAGES>
-__device__ __forceinline__ void pc_tile(const CUtensorMap& ma_hi, const CUtensorMap& ma_lo,
-                                        const CUtensorMap& mb, const Geom& g,
-                                        const float* __restrict__ dn2, const bf16* __restrict__ bd,
-                                        const float* __restrict__ col_inv,
-                                        bf16* __restrict__ out) {
-  using Op = PCOp<KIND, VAR, IO>;
-  constexpr bool PASTE = Op::PASTE;
-  const int b = blockIdx.z;
-  const int phase = PASTE ? blockIdx.y % 4 : 0;
-  const int m0 = (PASTE ? blockIdx.y / 4 : blockIdx.y) * BM, c0 = blockIdx.x * 64;
-  const Op op{&ma_hi, &ma_lo, &mb, b, m0 / g.wdp, m0 % g.wdp, c0, g.wdp, phase, g.kp / BK,
-              col_inv, g.hd, g.wd};
-  float acc[32];
-  if constexpr (NSTAGES == 1) {
-    mainloop_sync(op, acc);
-  } else {
-    mainloop(op, acc);
-  }
+// The epilogue of a (P, C) tile at output positions m0, channels c0, of
+// output phase `phase` of sample b; out in T (bf16 or float) with C
+// channels: (B, 2hd, 2wd, C) for paste and db_full (or phase planes (B, 2,
+// 2, hd, wd, C), kPlanesToPlanes), (B, hd, wd, C) else. dbd adds the norm
+// term 2 bd box(dn2), bd (B, hd, wd, Cp) in T.
+template <int KIND, int IO, typename T>
+__device__ __forceinline__ void pc_store(const float (&acc)[32], const Geom& g, int b,
+                                         int phase, int m0, int c0,
+                                         const float* __restrict__ dn2,
+                                         const T* __restrict__ bd, T* __restrict__ out) {
+  constexpr bool PASTE = KIND == kPaste || KIND == kDbfull;
   const int tid = threadIdx.x;
   const int L = g.L();
 #pragma unroll
@@ -267,11 +276,34 @@ __device__ __forceinline__ void pc_tile(const CUtensorMap& ma_hi, const CUtensor
         if (c >= g.C) continue;
         float v = acc[i];
         if (PASTE) v *= 0.25f;
-        if (KIND == kDbd) v += 2.f * __bfloat162float(bd[((size_t)b * L + m) * g.Cp + c]) * box;
-        out[at + c] = __float2bfloat16(v);
+        if (KIND == kDbd) v += 2.f * hv_attn::to_f(bd[((size_t)b * L + m) * g.Cp + c]) * box;
+        out[at + c] = hv_attn::from_f<T>(v);
       }
     }
   }
+}
+
+// One (P, C) tile of the bf16 route.
+template <int KIND, int VAR, int IO, int NSTAGES>
+__device__ __forceinline__ void pc_tile(const CUtensorMap& ma_hi, const CUtensorMap& ma_lo,
+                                        const CUtensorMap& mb, const Geom& g,
+                                        const float* __restrict__ dn2, const bf16* __restrict__ bd,
+                                        const float* __restrict__ col_inv,
+                                        bf16* __restrict__ out) {
+  using Op = PCOp<KIND, VAR, IO>;
+  constexpr bool PASTE = Op::PASTE;
+  const int b = blockIdx.z;
+  const int phase = PASTE ? blockIdx.y % 4 : 0;
+  const int m0 = (PASTE ? blockIdx.y / 4 : blockIdx.y) * BM, c0 = blockIdx.x * 64;
+  const Op op{{}, &ma_hi, &ma_lo, &mb, b, m0 / g.wdp, m0 % g.wdp, c0, g.wdp, phase, g.kp / BK,
+              col_inv, g.hd, g.wd};
+  float acc[32];
+  if constexpr (NSTAGES == 1) {
+    mainloop_sync(op, acc);
+  } else {
+    mainloop(op, acc);
+  }
+  pc_store<KIND, IO, bf16>(acc, g, b, phase, m0, c0, dn2, bd, out);
 }
 
 // Grid (Cp / 64, ceil(hd wdp / 64) x phases, B).
@@ -283,16 +315,20 @@ pc_gemm(const __grid_constant__ CUtensorMap ma_hi, const __grid_constant__ CUten
   pc_tile<KIND, kFull, kPlanesToNatural, STAGES>(ma_hi, ma_lo, mb, g, dn2, bd, nullptr, out);
 }
 
-constexpr int ROW_PAD = BK + 8;  // bf16 row of a transpose tile: 144 bytes
+// A row of a transpose tile: BK values and 16 bytes of pad, so that rows
+// stay 16-byte aligned (144 bytes in bf16, 272 in float32).
+template <typename PT>
+constexpr int ROW_PAD = BK + 16 / (int)sizeof(PT);
 // Warps of a fuse + softmax block, one row group each: 32 (1024 threads,
 // at most 64 registers a thread). The sweep took 1.87 ms at B = 64 on an
 // H100 with 32, 2.30 ms with 8 (chip_smoke.py's stage split, PERF.md).
 constexpr int SOFTMAX_ROWS = 32;
 
 // Fuse and gated column softmax (as hv_attn::fuse_softmax_kernel), writing
-// the paste's operand: probsT (B, P, kp) in hi and lo bf16, row p holding
-// probs[l, p] at l's padded position, zero at phantoms; and, when probs is
-// not null, the float32 probs (B, L, P). Grid (ceil(P / 32), B), block
+// the paste's operand: probsT (B, P, kp) in hi and lo bf16 (PT = float:
+// big and small TF32 halves), row p holding probs[l, p] at l's padded
+// position, zero at phantoms; and, when probs is not null, the float32
+// probs (B, L, P). Grid (ceil(P / 32), B), block
 // (32, SOFTMAX_ROWS). The first sweep takes the online max and sum of each
 // column's logits; the second computes the fused scores again (the 9-tap
 // gather of s) rather than storing them, and goes through a 32 x 64 tile
@@ -302,16 +338,16 @@ constexpr int SOFTMAX_ROWS = 32;
 // max and sum, no exp, 1/sum or gate); kPasteBf16 writes the hi plane alone
 // (pt_lo unused); kFoldNorm writes e * g unnormalised and col_inv[b, p] =
 // 1 / sum (B, L).
-template <int MODE = kFull>
+template <int MODE = kFull, typename PT = bf16>
 __global__ void __launch_bounds__(SM_COLS * SOFTMAX_ROWS)
 fuse_softmax_tc_kernel(const float* __restrict__ s, const float* __restrict__ mm,
-                       float* __restrict__ probs, bf16* __restrict__ pt_hi,
-                       bf16* __restrict__ pt_lo, Geom g, float scale,
+                       float* __restrict__ probs, PT* __restrict__ pt_hi,
+                       PT* __restrict__ pt_lo, Geom g, float scale,
                        float* __restrict__ col_inv = nullptr) {
   using namespace hv_attn;
   __shared__ float part_max[SOFTMAX_ROWS][SM_COLS];
   __shared__ float part_sum[SOFTMAX_ROWS][SM_COLS];
-  __shared__ __align__(16) bf16 tile[2][SM_COLS][ROW_PAD];
+  __shared__ __align__(16) PT tile[2][SM_COLS][ROW_PAD<PT>];
   const int L = g.L();
   const int b = blockIdx.y;
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SM_COLS + tx;
@@ -352,7 +388,9 @@ fuse_softmax_tc_kernel(const float* __restrict__ s, const float* __restrict__ mm
     }
   }
 
-  const int row = tid / 8, chunk = tid % 8;  // the write-out: 16 bytes a thread
+  // the write-out: 16 bytes (VEC values) a thread, CHUNKS of them a row
+  constexpr int VEC = 16 / (int)sizeof(PT), CHUNKS = BK / VEC;
+  const int row = tid / CHUNKS, chunk = tid % CHUNKS;
   const int prow = blockIdx.x * SM_COLS + row;
   for (int k0 = 0; k0 < g.kp; k0 += BK) {
     for (int kk = ty; kk < BK; kk += SOFTMAX_ROWS) {
@@ -375,15 +413,108 @@ fuse_softmax_tc_kernel(const float* __restrict__ s, const float* __restrict__ mm
       }
     }
     __syncthreads();
-    if (tid < SM_COLS * 8 && prow < L) {
-      const size_t at = ((size_t)b * L + prow) * g.kp + k0 + chunk * 8;
-      *reinterpret_cast<uint4*>(pt_hi + at) = *reinterpret_cast<const uint4*>(&tile[0][row][chunk * 8]);
+    if (tid < SM_COLS * CHUNKS && prow < L) {
+      const size_t at = ((size_t)b * L + prow) * g.kp + k0 + chunk * VEC;
+      *reinterpret_cast<uint4*>(pt_hi + at) = *reinterpret_cast<const uint4*>(&tile[0][row][chunk * VEC]);
       if constexpr (MODE != kPasteBf16) {
-        *reinterpret_cast<uint4*>(pt_lo + at) = *reinterpret_cast<const uint4*>(&tile[1][row][chunk * 8]);
+        *reinterpret_cast<uint4*>(pt_lo + at) = *reinterpret_cast<const uint4*>(&tile[1][row][chunk * VEC]);
       }
     }
     __syncthreads();
   }
+}
+
+// hi/lo planes (B, L, kp) of a float (B, L, P) matrix (PT = float: big and
+// small), columns at their padded positions, zero at phantoms. Grid (B *
+// L): one block a row, on grid x, whose limit (2^31 - 1) no batch reaches;
+// 256 threads.
+template <typename PT = bf16>
+__global__ void __launch_bounds__(256)
+split_rows_kernel(const float* __restrict__ x, PT* __restrict__ hi, PT* __restrict__ lo,
+                  Geom g) {
+  const int L = g.L();
+  const size_t row = blockIdx.x;
+  for (int q = threadIdx.x; q < g.kp; q += 256) {
+    const int p = g.real(q);
+    const float v = p >= 0 ? x[row * L + p] : 0.f;
+    split(v, hi[row * g.kp + q], lo[row * g.kp + q]);
+  }
+}
+
+// Fuse adjoint over a 64 x 64 tile of padded (row a, column c) positions:
+// ds0 = fuse_adjoint_at(dfused, a, c) / max(nrm_raw[a], 1e-4), written in
+// hi and lo (PT = float: big and small) both as ds0 (B, L, kp), row a, and
+// as its transpose ds0T (B, P, kp), row c; zero at phantoms. rowsum[b, a]
+// += sum_c ds * s[a, c] (zeroed beforehand): the norm's gradient before
+// dn2_kernel. Grid (kp / 64, kp / 64, B), block (32, 8).
+template <typename PT = bf16>
+__global__ void __launch_bounds__(SM_COLS * SM_ROWS)
+fuse_adj_tc_kernel(const float* __restrict__ dfused, const float* __restrict__ s,
+                   const float* __restrict__ nrm_raw, PT* __restrict__ ds_hi,
+                   PT* __restrict__ ds_lo, PT* __restrict__ dst_hi,
+                   PT* __restrict__ dst_lo, float* __restrict__ rowsum, Geom g) {
+  using namespace hv_attn;
+  constexpr int VEC = 16 / (int)sizeof(PT), CHUNKS = BK / VEC;  // 16-byte chunks of a row
+  __shared__ __align__(16) PT tile[2][BK][ROW_PAD<PT>];
+  const int L = g.L();
+  const int b = blockIdx.z;
+  const int c0 = blockIdx.x * BK, a0 = blockIdx.y * BK;
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * SM_COLS + tx;
+  const float* fb = dfused + (size_t)b * L * L;
+  const int cols[2] = {g.real(c0 + tx), g.real(c0 + tx + 32)};
+
+  for (int ar = ty; ar < BK; ar += SM_ROWS) {
+    const int a = g.real(a0 + ar);
+    float part = 0.f;
+    const float nrm = a >= 0 ? fmaxf(nrm_raw[(size_t)b * L + a], 1e-4f) : 1.f;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float v = 0.f;
+      if (a >= 0 && cols[e] >= 0) {
+        const float ds = fuse_adjoint_at(fb, a, cols[e], g.wd, L);
+        part += ds * s[((size_t)b * L + a) * L + cols[e]];
+        v = ds / nrm;
+      }
+      split(v, tile[0][ar][tx + 32 * e], tile[1][ar][tx + 32 * e]);
+    }
+    for (int off = 16; off > 0; off /= 2) part += __shfl_down_sync(0xffffffffu, part, off);
+    if (tx == 0 && a >= 0) atomicAdd(rowsum + (size_t)b * L + a, part);
+  }
+  __syncthreads();
+  // rows a: 64 rows of CHUNKS 16-byte chunks a plane
+  for (int k = tid; k < BK * CHUNKS; k += SM_COLS * SM_ROWS) {
+    const int ar = k / CHUNKS, chunk = k % CHUNKS;
+    const int a = g.real(a0 + ar);
+    if (a < 0) continue;
+    const size_t at = ((size_t)b * L + a) * g.kp + c0 + chunk * VEC;
+    *reinterpret_cast<uint4*>(ds_hi + at) = *reinterpret_cast<const uint4*>(&tile[0][ar][chunk * VEC]);
+    *reinterpret_cast<uint4*>(ds_lo + at) = *reinterpret_cast<const uint4*>(&tile[1][ar][chunk * VEC]);
+  }
+  // rows c of the transpose: a column of the tile, gathered VEC values a chunk
+  for (int k = tid; k < BK * CHUNKS; k += SM_COLS * SM_ROWS) {
+    const int cr = k / CHUNKS, chunk = k % CHUNKS;
+    const int c = g.real(c0 + cr);
+    if (c < 0) continue;
+    const size_t at = ((size_t)b * L + c) * g.kp + a0 + chunk * VEC;
+#pragma unroll
+    for (int plane = 0; plane < 2; ++plane) {
+      __align__(16) PT v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = tile[plane][chunk * VEC + e][cr];
+      *reinterpret_cast<uint4*>((plane ? dst_lo : dst_hi) + at) = *reinterpret_cast<const uint4*>(v);
+    }
+  }
+}
+
+// dn2 = -rowsum / nrm * 0.5 / nrm_raw where nrm_raw > 1e-4, else 0 (the
+// norm's gradient, as the plain version's dnrm2).
+__global__ void dn2_kernel(const float* __restrict__ rowsum, const float* __restrict__ nrm_raw,
+                           float* __restrict__ dn2, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float nr = nrm_raw[i];
+  const float dn = -rowsum[i] / fmaxf(nr, 1e-4f);
+  dn2[i] = nr > 1e-4f ? dn * 0.5f / fmaxf(nr, 1e-12f) : 0.f;
 }
 
 // ---- host side ----
@@ -416,16 +547,23 @@ EncodeTiled encode_tiled() {
 
 constexpr int kMapError = 1000;  // returned, plus the CUresult, when a map fails
 
-// A bf16 tensor map over a dense tensor, dims innermost first, 128-byte
-// swizzle, zero fill out of bounds; element strides 1, or `estride`.
-// Returns 0 or kMapError + CUresult.
+// A tensor map of element type T (bf16, or float32) over a dense tensor,
+// dims innermost first, 128-byte swizzle, zero fill out of bounds; element
+// strides 1, or `estride`. Returns 0 or kMapError + CUresult. The float32
+// maps are FLOAT32, not TFLOAT32: TMA copies the bits as they are, and the
+// route splits every float32 operand into TF32 halves itself.
+template <typename T = bf16>
 int make_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
              const uint32_t* box, const uint32_t* estride = nullptr) {
+  static_assert(std::is_same_v<T, bf16> || std::is_same_v<T, float>);
+  constexpr CUtensorMapDataType kType = std::is_same_v<T, float>
+                                            ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                            : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return kMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
   cuuint64_t gdim[5], gstride[4];
   cuuint32_t bdim[5], edim[5];
-  uint64_t stride = sizeof(bf16);
+  uint64_t stride = sizeof(T);
   for (int i = 0; i < rank; ++i) {
     gdim[i] = dims[i];
     bdim[i] = box[i];
@@ -433,35 +571,45 @@ int make_map(CUtensorMap* map, const void* ptr, int rank, const uint64_t* dims,
     if (i > 0) gstride[i - 1] = stride;
     stride *= dims[i];
   }
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), gdim,
+  const CUresult r = fn(map, kType, rank, const_cast<void*>(ptr), gdim,
                         gstride, bdim, edim, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
 }
 
-// A feature map (B, phases, hd, wd, Cp) read in boxes of 64 channels by
-// `positions` grid positions (a rectangle of the padded order).
+// Values of T in one 128-byte swizzle row: a box's inner extent.
+template <typename T>
+constexpr uint32_t ROW_VALUES = 128 / sizeof(T);
+
+// A feature map (B, phases, hd, wd, Cp) of T read in boxes of one 128-byte
+// row of channels (64 bf16, 32 float32) by `positions` grid positions (a
+// rectangle of the padded order).
+template <typename T = bf16>
 int feature_map(CUtensorMap* map, const void* ptr, const Geom& g, int phases, int B,
                 int positions) {
   const int w = g.wdp < positions ? g.wdp : positions;
   const uint64_t dims[5] = {(uint64_t)g.Cp, (uint64_t)g.wd, (uint64_t)g.hd, (uint64_t)phases,
                             (uint64_t)B};
-  const uint32_t box[5] = {BK, (uint32_t)w, (uint32_t)(positions / w), 1, 1};
-  return make_map(map, ptr, 5, dims, box);
+  const uint32_t box[5] = {ROW_VALUES<T>, (uint32_t)w, (uint32_t)(positions / w), 1, 1};
+  return make_map<T>(map, ptr, 5, dims, box);
 }
 
-// A scratch plane (B, hd, wd, kp) read in boxes of 64 row entries by 64
-// grid positions.
+// A scratch plane (B, hd, wd, kp) of T read in boxes of one 128-byte row of
+// entries by 64 grid positions.
+template <typename T = bf16>
 int plane_map(CUtensorMap* map, const void* ptr, const Geom& g, int B) {
   const int w = g.wdp < BM ? g.wdp : BM;
   const uint64_t dims[4] = {(uint64_t)g.kp, (uint64_t)g.wd, (uint64_t)g.hd, (uint64_t)B};
-  const uint32_t box[4] = {BK, (uint32_t)w, (uint32_t)(BM / w), 1};
-  return make_map(map, ptr, 4, dims, box);
+  const uint32_t box[4] = {ROW_VALUES<T>, (uint32_t)w, (uint32_t)(BM / w), 1};
+  return make_map<T>(map, ptr, 4, dims, box);
 }
 
 // The geometry the wrapper chose, checked against what the maps need, and
-// the batch against the grid's z limit.
+// the batch against the grid's z limit. The float32 maps' boxes (32
+// channels or entries, by 32, 64 or 128 positions) need no more: Cp and kp
+// are multiples of 64, and a 32-position box is a rectangle of every wdp
+// allowed here (a divisor of 32, or a multiple of it).
 bool valid(const Geom& g, int B) {
   const bool wdp_ok = g.wdp <= 64 ? (g.wdp >= 8 && 64 % g.wdp == 0) : g.wdp % 128 == 0;
   return wdp_ok && g.wdp >= g.wd && g.kp % BK == 0 && g.kp >= g.hd * g.wdp && g.Cp % BK == 0 &&
@@ -480,9 +628,9 @@ bool valid(const Geom& g, int B) {
 // queues nothing): a flag kept once per process would leave a second card
 // at the default, where the launch fails.
 template <class K>
-int smem_attribute(K kernel) {
+int smem_attribute(K kernel, int bytes = SMEM_BYTES) {
   return static_cast<int>(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes));
 }
 
 // Grid of an (L, P) GEMM and of a (P, C) GEMM with `phases` output phases.

@@ -8,10 +8,9 @@
 // the gate mm (B, L), the scores s = wnorm fpat^T, both fuse passes, the
 // gated column softmax and the patch values vals = probs^T raw (B, P, RC),
 // before any fold. L = P = hd * wd. float32 inputs keep the CUDA-core
-// kernels of attention_v1.cu, as the float32 forward keeps its CUDA-core
-// route. healthivert_tpu_torch/ops/attention_cuda.py holds the wrapper (the
-// K and RC zero pad to a multiple of 64, the scratch) and the plain PyTorch
-// version.
+// kernels of attention_v1.cu. healthivert_tpu_torch/ops/attention_cuda.py
+// holds the wrapper (the K and RC zero pad to a multiple of 64, the
+// scratch) and the plain PyTorch version.
 //
 // What bounds it on this card: the work. At the generator's shapes (L = P
 // = 1024, K = 9C = 576, RC = 16C = 1024) a sample is 2 L P (K + RC) = 3.36
@@ -54,7 +53,7 @@ enum V1Kind : int { kV1Score = 0, kV1Paste = 1 };
 
 // The score's operands, both K-major feature maps (Kp, wd, hd, 1, B): A
 // wnorm at the 64 rows l of the tile, B fpat at its 128 columns p.
-struct V1ScoreOp {
+struct V1ScoreOp : Bf16Ring {
   static constexpr int BN = 128, NA = 1, TRANS_B = 0;
   static constexpr bool REG_A = false;
   const CUtensorMap* ma;
@@ -72,7 +71,7 @@ struct V1ScoreOp {
 // the tile's 64 output positions and K block k0 of positions l; B raw
 // (RCp, wd, hd, 1, B), MN-major, its 64 K rows the positions l of that
 // block (64 consecutive padded positions are a rectangle of the grid).
-struct V1PasteOp {
+struct V1PasteOp : Bf16Ring {
   static constexpr int BN = 64, NA = 2, TRANS_B = 1;
   static constexpr bool REG_A = false;
   const CUtensorMap* ma_hi;
@@ -103,7 +102,8 @@ v1_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensor
   const int m0 = blockIdx.y * BM;
   if constexpr (KIND == kV1Score) {
     const int n0 = blockIdx.x * 128;
-    const V1ScoreOp op{&ma, &mb, b, m0 / g.wdp, m0 % g.wdp, n0 / g.wdp, n0 % g.wdp, g.Cp / BK};
+    const V1ScoreOp op{{}, &ma, &mb, b, m0 / g.wdp, m0 % g.wdp, n0 / g.wdp, n0 % g.wdp,
+                       g.Cp / BK};
     float acc[64];
     mainloop(op, acc);
 #pragma unroll
@@ -123,7 +123,7 @@ v1_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensor
     }
   } else {
     const int c0 = blockIdx.x * 64;
-    const V1PasteOp op{&ma, &ma_lo, &mb, b, m0 / g.wdp, m0 % g.wdp, c0, g.wdp, g.kp / BK};
+    const V1PasteOp op{{}, &ma, &ma_lo, &mb, b, m0 / g.wdp, m0 % g.wdp, c0, g.wdp, g.kp / BK};
     float acc[32];
     mainloop(op, acc);
 #pragma unroll

@@ -1,15 +1,16 @@
 // Stage ablation of the contextual-attention forward for Hopper (sm_90a),
 // float32 (the CUDA-core route), with a plain C interface.
 //
-// Replaces, for float32 inputs (bf16 takes attention_tc_ablate.cu, as the
-// bf16 forward takes the tensor-core route), the Pallas TPU kernels of the
-// JAX package's timing ablation,
+// Replaces, for float32 inputs (bf16 takes attention_tc_ablate.cu), the
+// Pallas TPU kernels of the JAX package's timing ablation,
 // experiments/attn_ablate.py: `run` (:247) and `run_padded` (:289) over
 // `_kernel` (:52-243), `run_auto` (:466) over `_kernel_auto` (:326-462) and
-// `run_fold` (:657) over `_kernel_fold` (:504-653). Each runs the forward of
-// attention_v2.cu with one stage dropped or changed, the mode fixed at
-// compile time (StageMode in attention_v2_kernels.cuh):
-//   full        the four stages of attention_v2.cu
+// `run_fold` (:657) over `_kernel_fold` (:504-653). Each runs the four
+// stages of the first, CUDA-core forward (the float32 forward itself now
+// runs attention_tf32.cu on the tensor cores; this ablation keeps the
+// CUDA-core kernels of attention_v2_kernels.cuh) with one stage dropped or
+// changed, the mode fixed at compile time (StageMode there):
+//   full        norm, score GEMM, fuse + softmax, paste GEMM
 //   no_score    s = 0.5 everywhere in place of the norm and score GEMM
 //   no_fuse     the softmax of the unfused scores
 //   no_softmax  probs = the fused scores, no exp, 1/sum or gate
@@ -19,15 +20,14 @@
 //   floor       y = 0 and nothing else
 // and `layout` picks how b_full comes in and y goes out: natural
 // (B, 2hd, 2wd, C), or the 2 x 2 phase planes (B, 2, 2, hd, wd, C) that
-// the TPU wrapper built with a transpose. The forward's own launch in
-// attention_v2.cu is the natural layout in mode full.
+// the TPU wrapper built with a transpose.
 // healthivert_tpu_torch/experiments/attn_ablate.py holds the wrappers and
 // the plain PyTorch version of every mode.
 //
-// What bounds it on this card: as attention_v2.cu in mode full, the work
-// (3.36 GFLOP a sample at L = P = 1024, C = 64); the dropped stages' times
-// are what the ablation measures. The design is the forward's, with no
-// tuning of its own.
+// What bounds it on this card: in mode full, the work (3.36 GFLOP a sample
+// at L = P = 1024, C = 64); the dropped stages' times are what the
+// ablation measures. The design is the first forward's, with no tuning of
+// its own.
 #include <algorithm>
 
 #include <cuda_runtime.h>

@@ -1,5 +1,6 @@
-// Helpers shared by the contextual-attention forward (attention_v2.cu), the
-// backward (attention_v2_bwd.cu) and their bf16 route (attention_tc.cu):
+// Helpers shared by the contextual-attention kernels, the CUDA-core ones
+// (attention_v2_kernels.cuh) and the tensor-core routes (attention_tc.cu,
+// attention_tf32.cu):
 // type conversion, the GEMM tile shape, the zero-filled 2-D shift of a
 // feature map, the sigma+/sigma- steps of the second fuse pass, the fuse
 // adjoint and the softmax backward. Inline functions, templates and

@@ -1,4 +1,7 @@
-// Device code of the contextual-attention forward (see attention_v2.cu).
+// Device code of the contextual-attention forward on the CUDA cores: the
+// float32 stage ablation (attention_v2_ablate.cu), float32 v1
+// (attention_v1.cu), and the patch norm and fused-score gather that the
+// tensor-core routes (attention_tc_kernels.cuh) share.
 //
 // Layouts: fd, bd (B, hd, wd, C) and b_full (B, 2hd, 2wd, C), NHWC, T = float
 // or __nv_bfloat16; mm (B, L) float; s, probs (B, L, P) float, row l =

@@ -19,14 +19,17 @@ that must match `full`:
                probs column's 1/sum scales it as the paste loads it
   floor        y = 0 and nothing else: the launch floor
 
-The dtype picks the design, as it does for `attention_v2`:
+The dtype picks the design:
   bfloat16  the tensor-core route, csrc/attention_tc_ablate.cu: the
             kernels of csrc/attention_tc.cu (TMA-fed wgmma score and paste
             GEMMs, the fuse + softmax sweep writing probs split hi/lo), each
             mode an instantiation; channels zero-padded to 64 here (no copy
             at C = 64). `full` equals `attention_v2` bit for bit.
-  float32   the CUDA-core route, csrc/attention_v2_ablate.cu: the kernels of
-            csrc/attention_v2.cu, the mode a compile-time switch.
+  float32   the CUDA-core route, csrc/attention_v2_ablate.cu: the first
+            forward's four kernels (attention_v2_kernels.cuh), the mode a
+            compile-time switch. The float32 `attention_v2` itself now runs
+            on the tensor cores (csrc/attention_tf32.cu), so `full` agrees
+            with it within y's float32 gate, not bit for bit.
 No switch and no fallback: a bf16 launch the tensor-core route refuses
 raises. Its four entry functions keep the JAX names and arguments, minus
 the TPU-only channel padding to 128 lanes and its lane packing:

@@ -2,7 +2,8 @@
 
 Runs `run_training` with the options of
 checkpoints/pretrained_synthetic/train_opt.txt (batch 32, bf16, synthetic
-data) on the card for --warmup + --steps steps, times each step on the
+data; --dtype float32 for the dtype the train CLI defaults to) on the card
+for --warmup + --steps steps, times each step on the
 host clock after a device synchronise, and prints one JSON line: each
 step's ms, their mean and median, the attention's launches and the card's
 name and power limit.
@@ -61,8 +62,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--warmup", type=int, default=3)
     ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
+                    help="compute dtype in place of the recipe's")
     args = ap.parse_args(argv)
     opt = read_recipe()
+    if args.dtype is not None:
+        opt.compute_dtype = args.dtype
     marks = []
 
     def on_step(step, losses):

@@ -6,12 +6,13 @@ their plain versions, and the autograd Function that joins them.
 :304-470) and `attention_v2_bwd` replaces `attention_v2_bwd` (:772, body
 `_attention_v2_bwd_kernel` :597-766), with the same arguments and results,
 in NHWC. On a CUDA tensor each launches its hand-written kernel or
-raises; the dtype picks the route, with no other switch and no fallback:
-bfloat16 takes the tensor-core route (csrc/attention_tc.cu: TMA-fed wgmma
-GEMMs, channels zero-padded to a multiple of 64 and b_full and dy split
-into their 2 x 2 phase planes here), float32 the CUDA-core route
-(csrc/attention_v2.cu, csrc/attention_v2_bwd.cu). One library holds both,
-built for sm_90a with nvcc at first use and loaded with ctypes. On a CPU
+raises; the dtype picks the route, with no other switch and no fallback.
+Both routes run on the tensor cores, TMA-fed wgmma GEMMs with the channels
+zero-padded to a multiple of 64 and b_full and dy split into their 2 x 2
+phase planes here: bfloat16 in bf16 (csrc/attention_tc.cu), float32 in
+3xTF32, each float32 operand as big and small TF32 halves
+(csrc/attention_tf32.cu). One library holds every route, built for
+sm_90a with nvcc at first use and loaded with ctypes. On a CPU
 tensor each runs its plain PyTorch version (`attention_v2_reference`,
 `attention_v2_bwd_reference`), which the CPU tests hold against the JAX
 package. `AttentionV2Function` is the counterpart of the custom VJP
@@ -54,10 +55,9 @@ from .contextual_attention import (
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention_v2.cu", "attention_v2_bwd.cu", "attention_tc.cu", "attention_v1.cu",
-           "attention_tc_v1.cu", "attention_v2_ablate.cu", "attention_tc_ablate.cu",
-           "attention_v2_common.cuh", "attention_v2_kernels.cuh", "attention_tc.cuh",
-           "attention_tc_kernels.cuh")
+SOURCES = ("attention_tc.cu", "attention_tf32.cu", "attention_v1.cu", "attention_tc_v1.cu",
+           "attention_v2_ablate.cu", "attention_tc_ablate.cu", "attention_v2_common.cuh",
+           "attention_v2_kernels.cuh", "attention_tc.cuh", "attention_tc_kernels.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -131,13 +131,13 @@ def load_library(force_build: bool = False):
         if _lib is None or force_build:
             info = build(force=force_build)
             lib = ctypes.CDLL(str(info.path))
-            fn = lib.hv_attention_v2_forward
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+            fn = lib.hv_attention_tf32_forward
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
-            fn = lib.hv_attention_v2_backward
-            fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+            fn = lib.hv_attention_tf32_backward
+            fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -238,30 +238,12 @@ def attention_v2(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0,
     _check(fd, bd, b_full, mm, hd, wd)
     if fd.dtype == torch.bfloat16:
         return _attention_tc(fd, bd, b_full, mm, hd, wd, scale, emit_residuals)
-    lib, _ = load_library()
-    bs, c = fd.shape[0], fd.shape[-1]
-    num_l = hd * wd
-    dev = fd.device
-    y = torch.empty((bs, 2 * hd, 2 * wd, c), dtype=fd.dtype, device=dev)
-    s = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
-    probs = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
-    nrm_raw = torch.empty((bs, num_l, 1), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.hv_attention_v2_forward(
-            fd.data_ptr(), bd.data_ptr(), b_full.data_ptr(), mm.data_ptr(),
-            y.data_ptr(), s.data_ptr(), probs.data_ptr(), nrm_raw.data_ptr(),
-            bs, hd, wd, c, float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention_v2 kernel launch failed: CUDA error {rc}")
-    attention_v2.launches += 1
-    if emit_residuals:
-        return y, s, probs, nrm_raw
-    return y
+    return _attention_tf32(fd, bd, b_full, mm, hd, wd, scale, emit_residuals)
 
 
 attention_v2.launches = 0  # kernel launches in this process, both routes
 attention_v2.tc_launches = 0  # of which on the bf16 tensor-core route
+attention_v2.tf32_launches = 0  # of which on the float32 (3xTF32) tensor-core route
 
 
 def tc_geometry(hd: int, wd: int):
@@ -331,6 +313,46 @@ def _attention_tc(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
     _tc_call("attention_v2 (tensor cores)", rc)
     attention_v2.launches += 1
     attention_v2.tc_launches += 1
+    if emit_residuals:
+        return y, s, probs, nrm_raw
+    return y
+
+
+def _attention_tf32(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
+    """attention_v2 on the float32 route (csrc/attention_tf32.cu), laid out
+    as the bf16 route. Scratch: fd's and bd's big and small halves, and
+    probs^T's (2, B, P, kp); float32 probs only with emit_residuals.
+    split_kernel reads fd and bd four floats at a time with no tensor map
+    to check their address first, so a view that is not 16-byte aligned
+    (at C == Cp it is passed on uncopied) raises here."""
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    cp = -(-c // 64) * 64
+    wdp, kp = tc_geometry(hd, wd)
+    num_l = hd * wd
+    dev = fd.device
+    f32 = torch.float32
+    fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
+    for name, t in (("fd", fd_p), ("bd", bd_p)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention_v2 (3xTF32): {name} must start on a 16-byte boundary")
+    bph = to_phase_planes(b_full, hd, wd, cp)
+    y = torch.empty((bs, 2 * hd, 2 * wd, c), dtype=f32, device=dev)
+    s = torch.empty((bs, num_l, num_l), dtype=f32, device=dev)
+    probs = torch.empty_like(s) if emit_residuals else None
+    nrm_raw = torch.empty((bs, num_l, 1), dtype=f32, device=dev)
+    maps = torch.empty((4, bs, hd, wd, cp), dtype=f32, device=dev)
+    pt = torch.empty((2, bs, num_l, kp), dtype=f32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tf32_forward(
+            fd_p.data_ptr(), bd_p.data_ptr(), bph.data_ptr(), mm.data_ptr(), y.data_ptr(),
+            s.data_ptr(), None if probs is None else probs.data_ptr(), nrm_raw.data_ptr(),
+            maps.data_ptr(), pt.data_ptr(), bs, hd, wd, c, cp, wdp, kp, float(scale),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_v2 (3xTF32)", rc)
+    attention_v2.launches += 1
+    attention_v2.tf32_launches += 1
     if emit_residuals:
         return y, s, probs, nrm_raw
     return y
@@ -411,30 +433,46 @@ def attention_v2_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd: int, wd: int
     _check_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd)
     if fd.dtype == torch.bfloat16:
         return _attention_tc_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale)
-    lib, _ = load_library()
-    bs, c = fd.shape[0], fd.shape[-1]
-    num_l = hd * wd
-    dev = fd.device
-    dfd, dbd, db_full = torch.empty_like(fd), torch.empty_like(bd), torch.empty_like(b_full)
-    grad_a = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
-    grad_b = torch.empty_like(grad_a)
-    dn2 = torch.empty((bs, num_l), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.hv_attention_v2_backward(
-            fd.data_ptr(), bd.data_ptr(), b_full.data_ptr(), dy.data_ptr(),
-            probs.data_ptr(), s.data_ptr(), nrm_raw.data_ptr(), mm.data_ptr(),
-            dfd.data_ptr(), dbd.data_ptr(), db_full.data_ptr(),
-            grad_a.data_ptr(), grad_b.data_ptr(), dn2.data_ptr(),
-            bs, hd, wd, c, float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention_v2_bwd kernel launch failed: CUDA error {rc}")
-    attention_v2_bwd.launches += 1
-    return dfd, dbd, db_full
+    return _attention_tf32_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale)
 
 
 attention_v2_bwd.launches = 0  # kernel launches in this process, both routes
 attention_v2_bwd.tc_launches = 0  # of which on the bf16 tensor-core route
+attention_v2_bwd.tf32_launches = 0  # of which on the float32 (3xTF32) tensor-core route
+
+
+def _attention_tf32_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale):
+    """attention_v2_bwd on the float32 route (csrc/attention_tf32.cu).
+    Scratch: grad (B, L, P); planes (4, B, L, kp), probs's then ds0's big
+    and small and ds0^T's; the big and small halves of b_full's and dy's
+    phase planes (4, B, 4, hd, wd, Cp)."""
+    lib, _ = load_library()
+    bs, c = fd.shape[0], fd.shape[-1]
+    cp = -(-c // 64) * 64
+    wdp, kp = tc_geometry(hd, wd)
+    num_l = hd * wd
+    dev = fd.device
+    f32 = torch.float32
+    fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
+    bph, dyph = to_phase_planes(b_full, hd, wd, cp), to_phase_planes(dy, hd, wd, cp)
+    dfd, dbd, db_full = torch.empty_like(fd), torch.empty_like(bd), torch.empty_like(b_full)
+    grad = torch.empty((bs, num_l, num_l), dtype=f32, device=dev)
+    planes = torch.empty((4, bs, num_l, kp), dtype=f32, device=dev)
+    maps = torch.empty((4, bs, 4, hd, wd, cp), dtype=f32, device=dev)
+    rowsum = torch.empty((bs, num_l), dtype=f32, device=dev)
+    dn2 = torch.empty_like(rowsum)
+    with torch.cuda.device(dev):
+        rc = lib.hv_attention_tf32_backward(
+            fd_p.data_ptr(), bd_p.data_ptr(), bph.data_ptr(), dyph.data_ptr(),
+            probs.data_ptr(), s.data_ptr(), nrm_raw.data_ptr(), mm.data_ptr(),
+            dfd.data_ptr(), dbd.data_ptr(), db_full.data_ptr(), grad.data_ptr(),
+            planes.data_ptr(), maps.data_ptr(), rowsum.data_ptr(), dn2.data_ptr(),
+            bs, hd, wd, c, cp, wdp, kp, float(scale), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _tc_call("attention_v2_bwd (3xTF32)", rc)
+    attention_v2_bwd.launches += 1
+    attention_v2_bwd.tf32_launches += 1
+    return dfd, dbd, db_full
 
 
 def _attention_tc_bwd(fd, bd, b_full, dy, probs, s, nrm_raw, mm, hd, wd, scale):

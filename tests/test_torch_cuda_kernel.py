@@ -1,9 +1,10 @@
 """The CUDA attention kernels (forward, backward, the v1 patch attention
 and the forward's stage ablation) against their plain PyTorch versions, on
 the card. bf16 forward, backward, v1 and ablation run the tensor-core route
-(csrc/attention_tc.cu, attention_tc_v1.cu, attention_tc_ablate.cu), float32
-the CUDA-core route (csrc/attention_v2.cu, attention_v2_bwd.cu,
-attention_v1.cu, attention_v2_ablate.cu); the same tolerances hold both.
+(csrc/attention_tc.cu, attention_tc_v1.cu, attention_tc_ablate.cu); the
+float32 forward and backward the tensor cores in 3xTF32
+(csrc/attention_tf32.cu), float32 v1 and ablation the CUDA cores
+(attention_v1.cu, attention_v2_ablate.cu); the same tolerances hold all.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -103,28 +104,54 @@ def test_kernel_matches_plain(cuda_device, shape, band, dtype):
 
 
 def test_dtype_picks_the_route(cuda_device):
-    """bf16 launches the tensor-core route in both directions, float32 the
-    CUDA-core route: `launches` counts both, `tc_launches` the first."""
+    """bf16 launches the bf16 tensor-core route in both directions, float32
+    the 3xTF32 route: `launches` counts both, `tc_launches` the first,
+    `tf32_launches` the second."""
+    counters = lambda: [getattr(fn, k) for fn in (attention_v2, attention_v2_bwd)
+                        for k in ("launches", "tc_launches", "tf32_launches")]
     for dtype, tc in ((torch.bfloat16, 1), (torch.float32, 0)):
         fd, bd, b_full, mm = make_inputs(1, 8, 8, 4, "middle", dtype, cuda_device)
         ins = [t.clone().requires_grad_(True) for t in (fd, bd, b_full)]
-        before = [attention_v2.launches, attention_v2.tc_launches,
-                  attention_v2_bwd.launches, attention_v2_bwd.tc_launches]
+        before = counters()
         AttentionV2Function.apply(*ins, mm, 8, 8, 10.0).float().square().sum().backward()
         torch.cuda.synchronize()
-        after = [attention_v2.launches, attention_v2.tc_launches,
-                 attention_v2_bwd.launches, attention_v2_bwd.tc_launches]
-        assert [a - b for a, b in zip(after, before)] == [1, tc, 1, tc], dtype
+        assert [a - b for a, b in zip(counters(), before)] == [1, tc, 1 - tc] * 2, dtype
 
 
-@pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64", "v1_B64"])
+@pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64", "v1_B64",
+                                       "forward_B64_f32", "backward_B32_f32"])
 def test_tensor_core_route_at_production_shapes(cuda_device, direction):
     """The main path's shapes (32 x 32, C = 64; the forward at the 3D
     driver's batch of 64, the backward at the recipe's 32, v1 at the
     ablation's 64 with K = 576, RC = 1024), bf16, at the tolerances above;
-    and the backward at 64, where B * L = 65536 rows pass the 65535 limit of
-    a grid's y and z."""
-    if direction == "v1_B64":
+    the backward at 64, where B * L = 65536 rows pass the 65535 limit of a
+    grid's y and z; and the float32 (3xTF32) forward at 64 and backward at
+    32, on the route each counts."""
+    if direction.endswith("_f32"):
+        b = int(direction.split("_B")[1].split("_")[0])
+        if direction.startswith("forward"):
+            fd, bd, b_full, mm = make_inputs(b, 32, 32, 64, "middle", torch.float32, cuda_device)
+            before = attention_v2.tf32_launches
+            y, s, probs, nrm = attention_v2(fd, bd, b_full, mm, 32, 32, 10.0, emit_residuals=True)
+            torch.cuda.synchronize()
+            assert attention_v2.tf32_launches == before + 1
+            y_r, s_r, p_r, n_r = attention_v2_reference(fd, bd, b_full, mm, 32, 32, 10.0, True)
+            torch.testing.assert_close(s, s_r, rtol=0, atol=2e-5)
+            torch.testing.assert_close(probs, p_r, rtol=0, atol=1e-4)
+            torch.testing.assert_close(nrm, n_r, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(y, y_r, rtol=0, atol=3e-4)
+            assert float(p_r.amax(dim=1).min()) < 0.9
+        else:
+            args = backward_case(b, 32, 32, 64, "middle", torch.float32, cuda_device)
+            before = attention_v2_bwd.tf32_launches
+            got = attention_v2_bwd(*args, 32, 32, 10.0)
+            torch.cuda.synchronize()
+            assert attention_v2_bwd.tf32_launches == before + 1
+            want = attention_v2_bwd_reference(*args, 32, 32, 10.0)
+            for name, g, w in zip(("dfd", "dbd", "db_full"), got, want):
+                assert bwd_within(g, w, torch.float32), (
+                    name, float((g - w).abs().max()), float(w.abs().max()))
+    elif direction == "v1_B64":
         fd, bd, b_full, mm = make_inputs(64, 32, 32, 64, "middle", torch.bfloat16, cuda_device)
         patches = v1_patches(fd, bd, b_full)
         before = attention_scores_paste.tc_launches
@@ -288,6 +315,28 @@ def test_v1_tc_raises_where_the_route_cannot_go(cuda_device):
     assert (attention_scores_paste.launches, attention_scores_paste.tc_launches) == before
 
 
+@pytest.mark.parametrize("name", ["fd", "bd"])
+def test_tf32_raises_on_a_misaligned_input(cuda_device, name):
+    """A float32 forward whose fd or bd starts four bytes off a 16-byte
+    boundary (C = 64, so the wrapper passes it on uncopied) raises before
+    any launch and counts none: the split reads it four floats at a time,
+    and a misaligned read would poison the context instead of raising."""
+    inputs = dict(zip(("fd", "bd", "b_full", "mm"),
+                      make_inputs(1, 8, 8, 64, "middle", torch.float32, cuda_device)))
+    x = inputs[name]
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    inputs[name] = off.view(x.shape).copy_(x)
+    assert inputs[name].is_contiguous() and inputs[name].data_ptr() % 16 != 0
+    before = (attention_v2.launches, attention_v2.tf32_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_v2(*inputs.values(), 8, 8)
+    torch.cuda.synchronize()
+    assert (attention_v2.launches, attention_v2.tf32_launches) == before
+    y = attention_v2(*{**inputs, name: x}.values(), 8, 8)  # the context is still usable
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all()
+
+
 def test_offsets_keep_the_gradient(cuda_device):
     """contextual_attention with compute_offsets under grad: y has a
     grad_fn, y and the offsets equal the paths without offsets and without
@@ -378,7 +427,9 @@ def test_ablate_entry_functions_count_their_launches(cuda_device):
     outs[1] = attn_ablate.from_phases(outs[1])
     for y in outs[1:]:  # one arithmetic in both layouts: bit-equal
         assert torch.equal(y, outs[0])
-    torch.testing.assert_close(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8), rtol=0, atol=0)
+    # the float32 forward runs 3xTF32 on the tensor cores, the float32
+    # ablation the CUDA cores: the same function within y's float32 gate
+    torch.testing.assert_close(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8), rtol=0, atol=3e-4)
     with pytest.raises(ValueError):  # b_full in the phase layout's place
         attn_ablate.run_padded(fd, bd, b_full, mm, 8, 8)
 
