@@ -12,16 +12,17 @@ JSON line:
                 3xTF32 by design)
   2. build      one nvcc process per source for sm_90a, all started
                 together (csrc/attention_tc.cu, attention_tf32.cu,
-                attention_v1.cu, attention_tc_v1.cu, attention_v2_ablate.cu,
-                attention_tc_ablate.cu), linked into one library, with the
-                -Xptxas -v register and shared-memory report of each kernel;
-                the SASS (cuobjdump -sass) of every tensor-core GEMM kernel,
-                the bf16 route's six, the float32 (3xTF32) route's six, v1's
+                attention_tc_v1.cu, attention_tf32_v1.cu,
+                attention_tc_ablate.cu, attention_tf32_ablate.cu), linked
+                into one library, with the -Xptxas -v register and
+                shared-memory report of each kernel; the SASS (cuobjdump
+                -sass) of every tensor-core GEMM kernel of both routes (bf16
+                and float32 3xTF32: the forward's and backward's six, v1's
                 score and paste, and the ablation's score and paste
-                instantiations (the depth-1 ring's included), must hold
-                HGMMA (wgmma) and UTMALDG (TMA loads); then, for comparison,
-                the seconds of one nvcc call over the same files (its
-                library thrown away)
+                instantiations, the depth-1 ring's included) must hold HGMMA
+                (wgmma, all TF32 in the float32 ones) and UTMALDG (TMA
+                loads); then, for comparison, the seconds of one nvcc call
+                over the same files (its library thrown away)
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
                 f32 (3xTF32 route, counted by tf32_launches) and bf16
                 (tensor-core route), hole band in the middle, bottom and
@@ -33,10 +34,10 @@ JSON line:
                 C=64): dfd, dbd, db_full
   5. kernel_v1  attention_scores_paste (v1) kernel vs plain version on the
                 patch tensors of the same cases at production shapes (K =
-                576, RC = 1024), plus 6 x 10, C=20 (K = 180, padded to 192
-                on the tensor cores; RC = 320) and B=64, bf16; bf16 on the
-                tensor-core route (counted by tc_launches), f32 on the CUDA
-                cores
+                576, RC = 1024), plus 6 x 10, C=20 (K = 180, padded to 192;
+                RC = 320) and B=64 in each dtype; bf16 on the bf16
+                tensor-core route (counted by tc_launches), f32 on the 3xTF32
+                route (tf32_launches)
   6. fwd_f32    generator_forward on the card (kernel) against the port's
                 CPU path (plain version), batch 2, float32
   7. grad_f32   one train_step at lr=0, full width (ngf=16, ndf=64, 256 x
@@ -65,40 +66,49 @@ JSON line:
                 step, finite losses, every parameter moved; one more step
                 under torch.profiler: its device time and the attention
                 route's share of it
- 12. ablate     the forward's stage ablation: every mode in both layouts,
-                kernel vs plain on soft attention at (2, 32, 32, 64) f32
-                (CUDA cores), (64, 32, 32, 64) bf16 and (1, 6, 10, 20) bf16
-                (tensor cores, counted by attention_v2_ablate.tc_launches),
-                and on the entry point's own inputs at its batch; bf16
-                run(mode="full") equal to attention_v2 bit for bit; then the
-                entry point (experiments/attn_ablate.main) at the 3D
-                synthesis's batch of 64, bf16, its four entry functions and the
-                v1 kernel each launched at least once, every ablation launch
-                on the tensor-core route, `full`'s variants (ring depth 1,
-                natural layout) equal to it, its v1 launches all on the
-                tensor-core route; the stage split its modes imply beside
-                torch.profiler's split of run(mode="full"), and no CUDA-core
-                kernel in a profiled bf16 call of every mode and of v1
+ 12. ablate     the forward's stage ablation, once in bf16 and once in f32:
+                every mode in both layouts, kernel vs plain on soft
+                attention at (64, 32, 32, 64) and (1, 6, 10, 20) in bf16 and
+                at (2, 32, 32, 64), (1, 6, 10, 20) and (64, 32, 32, 64) in
+                f32, and on the entry point's own inputs at its batch in
+                bf16, each launch counted on the dtype's route
+                (attention_v2_ablate.tc_launches or .tf32_launches);
+                run(mode="full") equal to attention_v2 of its dtype bit for
+                bit, and run_auto and run_fold to run; then the entry point
+                (experiments/attn_ablate.main, its DTYPE set to the dtype)
+                at the 3D synthesis's batch of 64, with the counts set to 0
+                just before it and read just after: its four entry
+                functions and the v1 kernel each launched at least once,
+                every launch on the dtype's route, `full`'s variants (ring
+                depth 1, natural layout) equal to it; the stage split its
+                modes imply beside torch.profiler's split of
+                run(mode="full"); a profiled call of every mode and of v1
+                holds the route's own GEMMs and no CUDA-core, library or
+                other-route GEMM
  13. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
                 (kernel ms from the ablation's own timing); the forward's,
                 the backward's and v1's device time per stage
-                (torch.profiler); then the float32 forward (with its
-                residuals, as training calls it) and backward on the 3xTF32
-                route, every float32 gate held, with their stage split, peak
-                device memory, and a profile free of CUDA-core and cuBLAS
-                GEMMs; and the float32 (CUDA-core) v1 and run(mode="full");
-                each float32 line with its float32 bound (67 TFLOP/s, the
-                CUDA cores) and the 3xTF32 bound (495 / 3 TFLOP/s)
+                (torch.profiler); then, on the 3xTF32 route, the float32
+                forward (with its residuals, as training calls it) and
+                backward, v1 at B=64 and the ablation's four entry functions
+                in mode full at B=64, every float32 gate held, each with its
+                stage split, a profile free of CUDA-core, library and
+                other-route GEMMs, and (forward, backward, v1) its peak
+                device memory; each float32 line with its float32 bound (67
+                TFLOP/s, the CUDA cores) and the 3xTF32 bound (495 / 3
+                TFLOP/s)
 
-then the `kernels` line (each row with its dtype: the bf16 rows of every
-kernel, and the float32 rows of #1 and #2, whose launches are train_f32's),
-and last the device line. Any failed check raises
+then the `kernels` line (14 rows, each kernel in each dtype it runs, with
+its dtype; the float32 launches of #1 and #2 are train_f32's, of #3 and
+#4-#7 the float32 ablation entry point's), and last the device line. Any
+failed check raises
 and the script exits non-zero without the last line. Run from the root of
 the repository:  python3 chip_smoke.py
 """
 
+import contextlib
 import functools
 import json
 import re
@@ -242,20 +252,25 @@ def one_call_build_seconds():
     return seconds
 
 
-# the tensor-core GEMM kernels, by name and template arguments: the bf16
-# route's six (attention_tc.cu; lp_gemm<0> also in attention_tc_ablate.cu,
-# for the ablation's score at ring depth 4), the float32 route's six
-# (attention_tf32.cu, 3xTF32), v1's score and paste (attention_tc_v1.cu),
-# and the ablation's score at ring depth 1 and its paste in each variant (0
-# full, 3 paste_bf16, 4 fold_norm), layout (1 natural, 2 phase planes) and
-# ring depth
-TF32_GEMMS = {"lp_gemm_tf32<0>", "lp_gemm_tf32<1>"} | {f"pc_gemm_tf32<{k}>" for k in range(2, 6)}
+# the tensor-core GEMM kernels, by name and template arguments. Each route
+# has six (bf16 attention_tc.cu, float32 attention_tf32.cu in 3xTF32; the
+# score, lp_gemm<0> and lp_gemm_tf32<0>, also in the route's ablation at
+# the forward's ring depth), v1's score and paste (attention_tc_v1.cu,
+# attention_tf32_v1.cu), and the ablation's score at ring depth 1 and its
+# paste in each variant (0 full, 3 paste_bf16, 4 fold_norm), layout (1
+# natural, 2 phase planes) and ring depth (attention_tc_ablate.cu: 4 or 1,
+# attention_tf32_ablate.cu: 2 or 1)
+TF32_GEMMS = ({"lp_gemm_tf32<0>", "lp_gemm_tf32<1>", "lp_gemm_tf32_sync<0>", "v1_gemm_tf32<0>",
+               "v1_gemm_tf32<1>"} | {f"pc_gemm_tf32<{k}>" for k in range(2, 6)}
+              | {f"paste_gemm_tf32<{v},{io},{ring}>" for v in (0, 3, 4)
+                 for io, ring in ((1, 2), (2, 2), (2, 1))})
 TC_GEMMS = ({"lp_gemm<0>", "lp_gemm<1>"} | {f"pc_gemm<{k}>" for k in range(2, 6)}
             | TF32_GEMMS | {"v1_gemm<0>", "v1_gemm<1>", "lp_gemm_sync<0>"}
             | {f"paste_gemm<{v},{io},{ring}>" for v in (0, 3, 4)
                for io, ring in ((1, 4), (2, 4), (2, 1))})
 GEMM_MANGLED = re.compile(
-    r"(lp_gemm_sync|lp_gemm_tf32|lp_gemm|pc_gemm_tf32|pc_gemm|paste_gemm|v1_gemm)I((?:Li\d+E)+)E")
+    r"(lp_gemm_tf32_sync|lp_gemm_sync|lp_gemm_tf32|lp_gemm|pc_gemm_tf32|pc_gemm|paste_gemm_tf32"
+    r"|paste_gemm|v1_gemm_tf32|v1_gemm)I((?:Li\d+E)+)E")
 
 
 def tc_sass(path):
@@ -386,20 +401,25 @@ def phase_kernel_bwd():
          f"{BWD_TOL} * max|ref|")
 
 
+def v1_counts():
+    """The launch counters of v1's routes."""
+    return [getattr(attention_scores_paste, k) for k in ("launches", "tc_launches", "tf32_launches")]
+
+
 def phase_kernel_v1():
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(1, 6, 10, 20, "bottom", torch.float32), (1, 6, 10, 20, "top", torch.bfloat16),
-              (64, 32, 32, 64, "middle", torch.bfloat16)]
+              (64, 32, 32, 64, "middle", torch.bfloat16), (64, 32, 32, 64, "middle", torch.float32)]
     worst = {}
     for b, hd, wd, c, band, dt in cases:
         fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, band, dt)
         patches = v1_patches(fd, bd, b_full)
-        before = (attention_scores_paste.launches, attention_scores_paste.tc_launches)
+        before = v1_counts()
         vals = attention_scores_paste(*patches, mm, hd, wd, 10.0)
         torch.cuda.synchronize()
-        check((attention_scores_paste.launches, attention_scores_paste.tc_launches)
-              == (before[0] + 1, before[1] + int(dt == torch.bfloat16)),
+        tc = int(dt == torch.bfloat16)
+        check([a - n for a, n in zip(v1_counts(), before)] == [1, tc, 1 - tc],
               f"kernel_v1 B{b}_{hd}x{wd}_C{c}: route by dtype")
         want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
         _, _, p_r, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
@@ -414,39 +434,85 @@ def phase_kernel_v1():
 
 
 ABLATE_COUNTED = (attention_scores_paste, run, run_padded, run_auto, run_fold)
+# the counter of each dtype's route, on every wrapper that has both
+ROUTE_COUNTER = {torch.bfloat16: "tc_launches", torch.float32: "tf32_launches"}
 
 
-def ablate_cases(batch):
+def dtype_name(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def ablate_cases(batch, dtype):
     """(name, hd, wd, inputs, soft) of phase ablate's comparisons: soft
     attention (attention_inputs) at three shapes, one of them the entry
-    point's, and the entry point's own inputs (near one-hot attention)."""
-    for b, hd, wd, c, band, dt in ((2, 32, 32, 64, "bottom", torch.float32),
-                                   (batch, 32, 32, 64, "top", torch.bfloat16),
-                                   (1, 6, 10, 20, "top", torch.bfloat16)):
-        yield (f"B{b}_{hd}x{wd}_C{c}_{band}_{str(dt).split('.')[-1]}", hd, wd,
-               attention_inputs(b, hd, wd, c, band, dt), True)
-    g, c, dt = attn_ablate.GRID, attn_ablate.CHANNELS, attn_ablate.DTYPE
-    yield (f"main_B{batch}_{g}x{g}_C{c}_{str(dt).split('.')[-1]}", g, g,
-           attn_ablate.make_inputs(batch, g, g, c, dt, torch.device("cuda"), attn_ablate.SEED),
-           False)
+    point's, and, in bf16, the entry point's own inputs (near one-hot
+    attention, whose float32 outputs the 3e-4 gate was not set for: the
+    float32 timings use soft attention too)."""
+    cases = {torch.bfloat16: [(batch, 32, 32, 64, "top"), (1, 6, 10, 20, "top")],
+             torch.float32: [(2, 32, 32, 64, "bottom"), (1, 6, 10, 20, "bottom"),
+                             (batch, 32, 32, 64, "top")]}[dtype]
+    for b, hd, wd, c, band in cases:
+        yield (f"B{b}_{hd}x{wd}_C{c}_{band}_{dtype_name(dtype)}", hd, wd,
+               attention_inputs(b, hd, wd, c, band, dtype), True)
+    if dtype == torch.bfloat16:
+        g, c = attn_ablate.GRID, attn_ablate.CHANNELS
+        yield (f"main_B{batch}_{g}x{g}_C{c}_{dtype_name(dtype)}", g, g,
+               attn_ablate.make_inputs(batch, g, g, c, dtype, torch.device("cuda"),
+                                       attn_ablate.SEED), False)
 
 
 # stages of the ablation's tensor-core kernels, by a part of each kernel's
-# name (fills stand in for dropped stages); the rest is the wrapper's
-ABLATE_STAGES = (("norm", "patch_norm"), ("score", "lp_gemm"),
+# name (fills stand in for dropped stages; `split` is the float32 route's
+# split of fd and bd); the rest is the wrapper's
+ABLATE_STAGES = (("split", "split_kernel"), ("norm", "patch_norm"), ("score", "lp_gemm"),
                  ("fuse_softmax", "fuse_softmax_tc"), ("paste", "paste_gemm"),
                  ("fill", "fill_kernel"))
-# the CUDA-core ablation's kernels, which no bf16 call may launch
+# the first ablation's and v1's CUDA-core kernels, which no call may launch
 CUDA_CORE_KERNELS = ("score_kernel", "paste_kernel", "fuse_softmax_kernel")
 
 
-def phase_ablate(batch=64):
-    """Every mode in both layouts against its plain version, then the
-    ablation's entry point with the launch counts set to 0 just before it
-    and read just after, then its stage split beside the profiler's.
+def mode_gemms(mode, dtype, ring_1=False):
+    """The GEMM kernels (a part of each name) a call of `mode` launches."""
+    tf32 = "_tf32" if dtype == torch.float32 else ""
+    score = f"lp_gemm{tf32}_sync<" if ring_1 else f"lp_gemm{tf32}<"
+    return ([score] if mode not in ("floor", "no_score") else []) + (
+        [f"paste_gemm{tf32}<"] if mode not in ("floor", "no_paste") else [])
+
+
+def route_clean(names, gemms, what, dtype):
+    """A profiled call in `dtype` launched each of `gemms` (a part of each
+    name) and no GEMM but its route's own tensor-core ones: no CUDA-core
+    GEMM of the first kernels, no library GEMM, no GEMM of the other
+    route."""
+    own = re.compile(r"(lp|pc|paste|v1)_gemm" + ("_tf32" if dtype == torch.float32 else "")
+                     + r"(_sync)?<")
+    bad = [k for k in names if NOT_ON_A_ROUTE.search(k) and not own.search(k)]
+    check(not bad, f"{what}: launched {bad}")
+    missing = [g for g in gemms if not any(g in k for k in names)]
+    check(not missing, f"{what}: no {missing} in {names}")
+
+
+@contextlib.contextmanager
+def ablation_dtype(dtype):
+    """attn_ablate.main's setting for one run: the dtype its inputs take,
+    set the way the tests set its GRID, CHANNELS and REPS."""
+    saved, attn_ablate.DTYPE = attn_ablate.DTYPE, dtype
+    try:
+        yield
+    finally:
+        attn_ablate.DTYPE = saved
+
+
+def phase_ablate(batch=64, dtype=torch.bfloat16):
+    """Every mode in both layouts against its plain version, each launch on
+    the dtype's route; run(mode="full") bit-equal to attention_v2; then the
+    ablation's entry point in the dtype with the launch counts set to 0 just
+    before it and read just after, then its stage split beside the
+    profiler's, and the kernels of a profiled call of every mode and of v1.
     Returns the entry point's result and those counts."""
-    worst, tc = {}, attn_ablate.attention_v2_ablate
-    for case, hd, wd, (fd, bd, b_full, mm), soft in ablate_cases(batch):
+    worst, ab = {}, attn_ablate.attention_v2_ablate
+    counter = ROUTE_COUNTER[dtype]
+    for case, hd, wd, (fd, bd, b_full, mm), soft in ablate_cases(batch, dtype):
         _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
         pmax, rmax = float(probs.max()), float(b_full.float().abs().max())
         if soft:
@@ -455,37 +521,50 @@ def phase_ablate(batch=64):
         for layout in LAYOUTS:
             b_in = b_full if layout == "natural" else to_phases(b_full, hd, wd)
             for mode in MODES:
-                before = tc.tc_launches
+                before = (ab.tc_launches, ab.tf32_launches)
                 got = attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
                 torch.cuda.synchronize()
                 name = f"{case}_{layout}_{mode}"
-                check(tc.tc_launches - before == int(fd.dtype == torch.bfloat16),
+                tc = int(dtype == torch.bfloat16)
+                check((ab.tc_launches - before[0], ab.tf32_launches - before[1]) == (tc, 1 - tc),
                       f"{name}: route by dtype")
                 want = ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
                 check(got.dtype == fd.dtype and got.shape == b_in.shape,
                       f"{name}: {got.dtype} {tuple(got.shape)}")
                 ok, worst[name] = ablate_within(got, want, mode, pmax, rmax)
                 check(ok, f"{name}: err {worst[name]}")
+        if hd == 32 and soft:
+            with torch.no_grad():
+                full = run(fd, bd, b_full, mm, hd, wd)
+                check(torch.equal(full, attention_v2(fd, bd, b_full, mm, hd, wd)),
+                      f"ablate {case}: run(mode='full') differs from attention_v2")
+                for fn in (run_auto, run_fold):
+                    check(torch.equal(fn(fd, bd, b_full, mm, hd, wd), full),
+                          f"ablate {case}: {fn.__name__} differs from run")
     g, c = attn_ablate.GRID, attn_ablate.CHANNELS
-    fd, bd, bf, mm = attn_ablate.make_inputs(batch, g, g, c, torch.bfloat16,
-                                             torch.device("cuda"), attn_ablate.SEED)
+    fd, bd, bf, mm = attn_ablate.make_inputs(batch, g, g, c, dtype, torch.device("cuda"),
+                                             attn_ablate.SEED)
     with torch.no_grad():
         check(torch.equal(run(fd, bd, bf, mm, g, g), attention_v2(fd, bd, bf, mm, g, g)),
-              "ablate: bf16 run(mode='full') differs from attention_v2")
+              f"ablate: {dtype_name(dtype)} run(mode='full') differs from attention_v2")
     torch.cuda.synchronize()
     for fn in ABLATE_COUNTED:
         fn.launches = 0
-    tc.tc_launches = attention_scores_paste.tc_launches = 0
-    result = attn_ablate.main([str(batch)])
+    for fn in (ab, attention_scores_paste):
+        fn.tc_launches = fn.tf32_launches = 0
+    with ablation_dtype(dtype):
+        result = attn_ablate.main([str(batch)])
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in ABLATE_COUNTED}
-    tc_launches = tc.tc_launches
-    v1_tc_launches = attention_scores_paste.tc_launches
+    route_launches = getattr(ab, counter)
+    v1_route_launches = getattr(attention_scores_paste, counter)
+    check(result["dtype"] == dtype_name(dtype), f"ablate: the entry point ran {result['dtype']}")
     check(all(n > 0 for n in launches.values()), f"ablate: a kernel was not launched: {launches}")
     entry = sum(n for name, n in launches.items() if name != "attention_scores_paste")
-    check(tc_launches == entry, f"ablate: {tc_launches} tensor-core launches of {entry}")
-    check(v1_tc_launches == launches["attention_scores_paste"],
-          f"ablate: {v1_tc_launches} v1 tensor-core launches of "
+    check(route_launches == entry and ab.tc_launches + ab.tf32_launches == entry,
+          f"ablate: {route_launches} launches on the {dtype_name(dtype)} route of {entry}")
+    check(v1_route_launches == launches["attention_scores_paste"],
+          f"ablate: {v1_route_launches} v1 launches on the {dtype_name(dtype)} route of "
           f"{launches['attention_scores_paste']}")
     ms, errs = result["ms"], result["rel_err_vs_full"]
     check(all(np.isfinite(v) and v > 0 for v in ms.values()), f"ablate: times {ms}")
@@ -495,27 +574,35 @@ def phase_ablate(batch=64):
     calls = {mode: functools.partial(run, fd, bd, bf, mm, g, g, mode=mode) for mode in MODES}
     calls["auto-full"] = functools.partial(run_auto, fd, bd, bf, mm, g, g)
     calls["fold-full"] = functools.partial(run_fold, fd, bd, bf, mm, g, g)
-    prof_split, seen = {}, set()
+    prof_split, kernels_of = {}, {}
     with torch.no_grad():
         for name, fn in calls.items():
             times = profile_ms(fn)
-            seen |= set(times)
             prof_split[name] = by_stage(times, ABLATE_STAGES)
+            kernels_of[name] = sorted(times)
+            mode = {"auto-full": "full", "fold-full": "full"}.get(name, name)
+            route_clean(kernels_of[name], mode_gemms(mode, dtype, ring_1=name == "auto-full"),
+                        f"ablate {dtype_name(dtype)} {name}", dtype)
         patches = v1_patches(fd, bd, bf)
-        v1_kernels = set(profile_ms(lambda: attention_scores_paste(*patches, mm, g, g)))
-    cuda_core = [k for k in seen | v1_kernels if any(n in k for n in CUDA_CORE_KERNELS)]
-    check(not cuda_core, f"ablate: a bf16 call launched CUDA-core kernels {cuda_core}")
+        v1_kernels = sorted(profile_ms(lambda: attention_scores_paste(*patches, mm, g, g)))
+    v1_gemm = "v1_gemm_tf32<" if dtype == torch.float32 else "v1_gemm<"
+    route_clean(v1_kernels, [v1_gemm + "0>", v1_gemm + "1>"], f"ablate {dtype_name(dtype)} v1",
+                dtype)
+    seen = {k for names in kernels_of.values() for k in names} | set(v1_kernels)
+    cuda_core = [k for k in seen if any(n in k for n in CUDA_CORE_KERNELS)]
+    check(not cuda_core, f"ablate: a {dtype_name(dtype)} call launched CUDA-core kernels {cuda_core}")
     emit("ablate", kernel_vs_plain_max_abs_err=worst, batch=batch, dtype=result["dtype"],
-         launches=launches, tc_launches=tc_launches, v1_tc_launches=v1_tc_launches, ms=ms,
+         launches=launches, route_launches={counter: route_launches},
+         v1_route_launches={counter: v1_route_launches}, ms=ms,
          saves_ms={m: ms["full"] - ms[m] for m in MODES},
          stage_ms={"ablation (full minus mode, CUDA events)": result["stage_ms"],
                    "profiler (device ms per run(mode='full'), mean of 5)": prof_split["full"]},
          profiler_stage_ms_per_mode=prof_split,
-         ring_depth_1_minus_4_ms=ms["auto-full"] - ms["full"],
+         ring_depth_1_minus_forward_ms=ms["auto-full"] - ms["full"],
          natural_minus_phases_ms={"vs run": ms["fold-full"] - ms["full"],
                                   "vs run_padded": ms["fold-full"] - ms["padded-full"]},
-         kernels_of_bf16_calls=sorted(k[:80] for k in seen),
-         kernels_of_bf16_v1_call=sorted(k[:80] for k in v1_kernels),
+         kernels_of_calls={k: [n[:80] for n in v] for k, v in kernels_of.items()},
+         kernels_of_v1_call=[k[:80] for k in v1_kernels],
          rel_err_vs_full=errs, tolerances={"kernel_vs_plain": "y's (f32 atol, bf16 atol "
          f"and rtol {attn_ablate.Y_TOL[torch.float32][0]}, {attn_ablate.Y_TOL[torch.bfloat16]}) "
          f"+ {attn_ablate.ABLATE_REL} * max|ref|, + 2 bf16 straddles for paste_bf16",
@@ -663,9 +750,8 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     return launches
 
 
-# the route counter of each training dtype, and the names of the float32
-# route's kernels (the attention's share of a float32 train step)
-TRAIN_COUNTER = {"bfloat16": "tc_launches", "float32": "tf32_launches"}
+# the names of the float32 route's kernels (the attention's share of a
+# float32 train step)
 TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "fuse_softmax_tc",
                 "split_rows", "softmax_bwd", "fuse_adj_tc", "dn2_kernel")
 
@@ -680,7 +766,7 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
     opt.compute_dtype = dtype
-    counter = TRAIN_COUNTER[dtype]
+    counter = ROUTE_COUNTER[getattr(torch, dtype)]
     per_step, marks, losses_seen = [], [], []
     prof = kernel_profiler()
 
@@ -784,20 +870,24 @@ BWD_STAGES = (("dprobs", "lp_gemm<1>"), ("split_probs", "split_rows"), ("db_full
               ("dfd", "pc_gemm<4>"), ("dbd", "pc_gemm<5>"))
 V1_STAGES = (("score", "v1_gemm<0>"), ("fuse_softmax", "fuse_softmax_tc"), ("paste", "v1_gemm<1>"))
 # the float32 (3xTF32) route's stages: the same, plus the split of the
-# feature maps into TF32 halves
+# feature maps (v1: of fpat and wnorm) into TF32 halves
 FWD_STAGES_TF32 = (("split", "split_kernel"), ("norm", "patch_norm"), ("score", "lp_gemm_tf32<0>"),
                    ("fuse_softmax", "fuse_softmax_tc"), ("paste", "pc_gemm_tf32<2>"))
 BWD_STAGES_TF32 = (("split", "split_kernel"), ("dprobs", "lp_gemm_tf32<1>"),
                    ("split_probs", "split_rows"), ("db_full", "pc_gemm_tf32<3>"),
                    ("softmax_bwd", "softmax_bwd"), ("fuse_adj", "fuse_adj_tc"),
                    ("dn2", "dn2_kernel"), ("dfd", "pc_gemm_tf32<4>"), ("dbd", "pc_gemm_tf32<5>"))
+V1_STAGES_TF32 = (("split", "split_kernel"), ("score", "v1_gemm_tf32<0>"),
+                  ("fuse_softmax", "fuse_softmax_tc"), ("paste", "v1_gemm_tf32<1>"))
 STAGES = {("fwd", torch.bfloat16): FWD_STAGES, ("bwd", torch.bfloat16): BWD_STAGES,
           ("v1", torch.bfloat16): V1_STAGES, ("fwd", torch.float32): FWD_STAGES_TF32,
-          ("bwd", torch.float32): BWD_STAGES_TF32}
-# kernels no float32 attention_v2 / attention_v2_bwd call may launch: the
-# first float32 route's CUDA-core GEMMs, and any library GEMM
-NOT_F32_ROUTE = re.compile(r"score_kernel|paste_kernel|dprobs_kernel|dbfull_kernel|"
-                           r"score_bwd_kernel|fuse_adj_norm|gemm|xmma|cublas|cutlass", re.I)
+          ("bwd", torch.float32): BWD_STAGES_TF32, ("v1", torch.float32): V1_STAGES_TF32,
+          ("ablate", torch.bfloat16): ABLATE_STAGES, ("ablate", torch.float32): ABLATE_STAGES}
+# kernels no attention call may launch (`route_clean`): the first, CUDA-core
+# kernels' GEMMs, and any GEMM but the routes' own (library GEMMs included)
+NOT_ON_A_ROUTE = re.compile(r"score_kernel|paste_kernel|fuse_softmax_kernel|dprobs_kernel|"
+                            r"dbfull_kernel|score_bwd_kernel|fuse_adj_norm|gemm|xmma|cublas|"
+                            r"cutlass", re.I)
 
 
 def profile_ms(fn, calls=5):
@@ -912,22 +1002,10 @@ def emit_timing(name, shape, dtype, kernel_ms, plain_ms, bound, err, device_ms, 
 
 
 def device_ms(kernel, which, dtype):
-    """The stage split of a tensor-core route (STAGES), or the time per
-    kernel of a CUDA-core one (float32 v1 and the ablation); and the names
-    of the kernels launched."""
+    """The stage split of a tensor-core route (STAGES) and the names of the
+    kernels launched."""
     times = profile_ms(kernel)
-    stages = STAGES.get((which, dtype))
-    return (times if stages is None else by_stage(times, stages)), sorted(times)
-
-
-def f32_route_only(names, what):
-    """A float32 call of the attention launched the 3xTF32 route's kernels
-    and no CUDA-core or library GEMM."""
-    bad = [k for k in names if NOT_F32_ROUTE.search(k)
-           and not any(g in k for g in ("lp_gemm_tf32", "pc_gemm_tf32"))]
-    check(not bad, f"{what}: float32 call launched {bad}")
-    check(any("lp_gemm_tf32" in k for k in names) and any("pc_gemm_tf32" in k for k in names),
-          f"{what}: no 3xTF32 GEMM in {names}")
+    return by_stage(times, STAGES[(which, dtype)]), sorted(times)
 
 
 def peak_bytes(fn):
@@ -974,7 +1052,7 @@ def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
         kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
         stages, names = device_ms(kernel, "fwd", dtype)
     if f32:
-        f32_route_only(names, "timing attention_v2")
+        route_clean(names, ("lp_gemm_tf32<", "pc_gemm_tf32<"), "timing attention_v2", dtype)
     return emit_timing("attention_v2", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
                        bound_ms(b, hd, wd, c, dtype), err, stages, kernels=names, **extra)
 
@@ -994,12 +1072,14 @@ def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
     stages, names = device_ms(kernel, "bwd", dtype)
     if dtype == torch.float32:
-        f32_route_only(names, "timing attention_v2_bwd")
+        route_clean(names, ("lp_gemm_tf32<", "pc_gemm_tf32<"), "timing attention_v2_bwd", dtype)
     return emit_timing("attention_v2_bwd", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
                        bwd_bound_ms(b, hd, wd, c, dtype), err, stages, kernels=names, **extra)
 
 
 def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    """v1 on patch tensors built beforehand; float32 also with its peak
+    device memory and the kernels of a profiled call held to its route."""
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
     patches = v1_patches(fd, bd, b_full)
@@ -1008,10 +1088,17 @@ def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     got, want = kernel(), plain()
     err = max_err(got, want)
     check(y_within(got, want, dtype), f"timing shape: v1 vals err {err}")
+    del got, want
+    extra = {}
+    if dtype == torch.float32:
+        extra["peak_bytes_above_inputs"] = peak_bytes(kernel)
     kernel_ms, plain_ms = timed(kernel, plain, 20, 5)
+    stages, names = device_ms(kernel, "v1", dtype)
+    if dtype == torch.float32:
+        route_clean(names, ("v1_gemm_tf32<0>", "v1_gemm_tf32<1>"), "timing v1", dtype)
     return emit_timing("attention_scores_paste", [b, hd * wd, 9 * c, 16 * c], dtype, kernel_ms,
-                       plain_ms, v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype), err,
-                       device_ms(kernel, "v1", dtype)[0])
+                       plain_ms, v1_bound_ms(b, hd * wd, 9 * c, 16 * c, dtype), err, stages,
+                       kernels=names, **extra)
 
 
 def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
@@ -1053,22 +1140,35 @@ def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
 
 
 def phase_timing_ablate_f32(b=64, hd=32, wd=32, c=64):
-    """run(mode="full") on the float32 (CUDA-core) ablation against its
-    plain version, CUDA events, soft-attention inputs as the other float32
-    timings."""
+    """The four float32 entry functions in mode full on soft-attention
+    inputs, as the other float32 timings: each against its plain version
+    (CUDA events, plain, kernel, kernel, plain), with both bounds and its
+    stage split, and the kernels of a profiled call held to the route."""
     dtype = torch.float32
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
-    kernel = lambda: run(fd, bd, b_full, mm, hd, wd)
-    plain = lambda: ablate_reference(fd, bd, b_full, mm, hd, wd)
+    bph = to_phases(b_full, hd, wd)
+    natural = lambda: ablate_reference(fd, bd, b_full, mm, hd, wd)
+    phases = lambda: ablate_layout_reference(fd, bd, bph, mm, hd, wd, layout="phases")
+    calls = {"run": (lambda: run(fd, bd, b_full, mm, hd, wd), natural),
+             "run_padded": (lambda: run_padded(fd, bd, bph, mm, hd, wd), phases),
+             "run_auto": (lambda: run_auto(fd, bd, b_full, mm, hd, wd), natural),
+             "run_fold": (lambda: run_fold(fd, bd, b_full, mm, hd, wd), natural)}
+    rows = {}
     with torch.no_grad():
-        got, want = kernel(), plain()
-        err = max_err(got, want)
-        check(y_within(got, want, dtype), f"timing shape: f32 run err {err}")
-        kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
-        per_kernel = profile_ms(kernel)
-    return emit_timing("attn_ablate.run", [b, hd, wd, c], dtype, kernel_ms, plain_ms,
-                       bound_ms(b, hd, wd, c, dtype), err, per_kernel, mode="full")
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            err = max_err(got, want)
+            check(y_within(got, want, dtype), f"timing shape: f32 {name} err {err}")
+            del got, want
+            kernel_ms, plain_ms = timed(kernel, plain, 10, 3)
+            stages, names = device_ms(kernel, "ablate", dtype)
+            route_clean(names, mode_gemms("full", dtype, ring_1=name == "run_auto"),
+                        f"timing f32 {name}", dtype)
+            rows[name] = emit_timing(f"attn_ablate.{name}", [b, hd, wd, c], dtype, kernel_ms,
+                                     plain_ms, bound_ms(b, hd, wd, c, dtype), err, stages,
+                                     mode="full", kernels=names)
+    return rows
 
 
 ABLATE_REPLACES = {"run": 247, "run_padded": 289, "run_auto": 466, "run_fold": 657}
@@ -1095,14 +1195,15 @@ def main():
     phase_profile_fwd(gen, cfg)
     del gen
     ablation, ablate_launches = phase_ablate()
+    _, ablate_launches_f32 = phase_ablate(dtype=torch.float32)
     t = phase_timing()
     tb = phase_timing_bwd()
     t1 = phase_timing_v1()
     ta = phase_timing_ablate(ablation)
     tf = phase_timing(dtype=torch.float32)
     tfb = phase_timing_bwd(dtype=torch.float32)
-    phase_timing_v1(dtype=torch.float32)
-    phase_timing_ablate_f32()
+    t1f = phase_timing_v1(dtype=torch.float32)
+    taf = phase_timing_ablate_f32()
     src = "healthivert_tpu_torch/csrc/"
     pallas = "healthivert_tpu/ops/attention_pallas.py"
     rows = [dict(name="attention_v2", source=src + "attention_tc.cu", replaces=f"{pallas}:476",
@@ -1115,11 +1216,17 @@ def main():
                  replaces=f"{pallas}:772", launches=f32_launches, **tfb),
             dict(name="attention_scores_paste", source=src + "attention_tc_v1.cu",
                  replaces=f"{pallas}:199", launches=ablate_launches["attention_scores_paste"],
-                 **t1)]
-    rows += [dict(name=f"attn_ablate.{name}", source=src + "attention_tc_ablate.cu",
-                  replaces=f"experiments/attn_ablate.py:{line}",
-                  launches=ablate_launches[name], **ta[name])
-             for name, line in ABLATE_REPLACES.items()]
+                 **t1),
+            dict(name="attention_scores_paste", source=src + "attention_tf32_v1.cu",
+                 replaces=f"{pallas}:199",
+                 launches=ablate_launches_f32["attention_scores_paste"], **t1f)]
+    for source, timing, counts in (("attention_tc_ablate.cu", ta, ablate_launches),
+                                   ("attention_tf32_ablate.cu", taf, ablate_launches_f32)):
+        rows += [dict(name=f"attn_ablate.{name}", source=src + source,
+                      replaces=f"experiments/attn_ablate.py:{line}",
+                      launches=counts[name], **timing[name])
+                 for name, line in ABLATE_REPLACES.items()]
+    check(len(rows) == 14, f"kernels line: {len(rows)} rows")
     print(json.dumps({"kernels": [{
         "name": r["name"], "dtype": r["dtype"], "route": "cuda", "source": r["source"],
         "replaces": r["replaces"], "launches": r["launches"], "max_abs_err": r["max_abs_err"],

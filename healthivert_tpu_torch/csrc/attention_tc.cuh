@@ -1,7 +1,9 @@
 // The tensor-core GEMM mainloop of the contextual attention: the bf16
-// route (attention_tc.cu: one kernel template, six GEMMs, and the stage
-// ablation's variants of two of them in attention_tc_ablate.cu) and the
-// float32 route (attention_tf32.cu: the same six GEMMs in 3xTF32).
+// route (attention_tc.cu: one kernel template, six GEMMs; v1's two in
+// attention_tc_v1.cu and the stage ablation's variants of two of them in
+// attention_tc_ablate.cu) and the float32 route (attention_tf32.cu: the
+// same six GEMMs in 3xTF32, attention_tf32_kernels.cuh; v1's and the
+// ablation's in attention_tf32_v1.cu and attention_tf32_ablate.cu).
 //
 // Every operand is a tile of 128-byte rows (64 bf16 or 32 float32 values),
 // loaded by TMA into shared memory in the 128-byte swizzle that wgmma reads.
@@ -20,7 +22,7 @@
 // + big small + big big per K step, in that order, the small terms first
 // (`split_tf32`). TF32 wgmma reads K-major operands only; an OP whose B
 // arrives MN-major (`TRANSFORM`) rewrites it K-major, split, in shared
-// memory before its products (attention_tf32.cu).
+// memory before its products (attention_tf32_kernels.cuh).
 //
 // The 2-D shifts of the attention (the 9 window offsets of the score, the
 // 4 or 16 taps of the paste) are TMA coordinates: each operand is a tensor
@@ -59,6 +61,7 @@ struct Bf16Ring {
   static constexpr bool TRANSFORM = false;
   static constexpr int STAGES = hv_tc::STAGES;
   static constexpr int STAGE_BYTES = hv_tc::STAGE_BYTES;
+  static constexpr int PROMOTE = 0;  // see mainloop
 };
 
 // Dynamic shared memory of a GEMM kernel over OP's ring.
@@ -284,7 +287,9 @@ __device__ __forceinline__ int a_frag_col(int tid, int q) {
 // The products of one stage (one 128-byte row deep: 64 bf16 or 32 TF32
 // values, four 32-byte steps) into acc; the first product of the GEMM (it
 // == 0) overwrites the sums. TF32: A big and small at 0 and TILE_BYTES, B
-// big and small at B_OFF and B_OFF + BN rows of 128 bytes, all K-major.
+// big and small at B_OFF and B_OFF + BN rows of 128 bytes, all K-major; an
+// OP with one A tile (NA = 1: operands whose values are exact in TF32, the
+// ablation's paste_bf16) takes big big alone.
 template <class OP>
 __device__ __forceinline__ void stage_products(uint32_t st, int it, float (&acc)[OP::BN / 2]) {
   constexpr int B_OFF = OP::NA * TILE_BYTES;
@@ -293,12 +298,16 @@ __device__ __forceinline__ void stage_products(uint32_t st, int it, float (&acc)
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t a_big = desc_sw128(st + kk * 32);
-      const uint64_t a_small = desc_sw128(st + TILE_BYTES + kk * 32);
       const uint64_t b_big = desc_sw128(st + B_OFF + kk * 32);
-      const uint64_t b_small = desc_sw128(st + B_OFF + B_TILE + kk * 32);
-      wgmma_tf32(acc, a_small, b_big, it > 0 || kk > 0);
-      wgmma_tf32(acc, a_big, b_small, 1);
-      wgmma_tf32(acc, a_big, b_big, 1);
+      if constexpr (OP::NA == 1) {
+        wgmma_tf32(acc, a_big, b_big, it > 0 || kk > 0);
+      } else {
+        const uint64_t a_small = desc_sw128(st + TILE_BYTES + kk * 32);
+        const uint64_t b_small = desc_sw128(st + B_OFF + B_TILE + kk * 32);
+        wgmma_tf32(acc, a_small, b_big, it > 0 || kk > 0);
+        wgmma_tf32(acc, a_big, b_small, 1);
+        wgmma_tf32(acc, a_big, b_big, 1);
+      }
     }
   } else {
 #pragma unroll
@@ -329,6 +338,9 @@ __device__ __forceinline__ void stage_products(uint32_t st, int it, float (&acc)
 template <class OP>
 __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st,
                                                float (&acc)[OP::BN / 2]) {
+  // the first product of a run of PROMOTE stages (of the GEMM when 0)
+  // overwrites the sums
+  const int run_it = OP::PROMOTE > 0 ? it % OP::PROMOTE : it;
   if constexpr (OP::REG_A) {
     constexpr int B_OFF = OP::NA * TILE_BYTES;
     uint32_t frag[BK / 16][2][4];
@@ -340,21 +352,21 @@ __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st
           desc_sw128(smem_u32(st) + B_OFF + (OP::TRANS_B ? kk * 2048 : kk * 32));
 #pragma unroll
       for (int a = 0; a < 2; ++a)
-        wgmma_n64_ra<OP::TRANS_B>(acc, frag[kk][a], db, it > 0 || kk > 0 || a > 0);
+        wgmma_n64_ra<OP::TRANS_B>(acc, frag[kk][a], db, run_it > 0 || kk > 0 || a > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
   } else {
     if constexpr (OP::TRANSFORM) {
-      // every thread rewrites its share of the stage's B operand; the
+      // every thread rewrites its share of the stage's operands; the
       // generic-proxy stores are made visible to wgmma's async proxy, and
       // the warpgroup meets, before any product reads them
-      op.transform(st);
+      op.transform(it, st);
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       __syncthreads();
     }
     wgmma_fence();
-    stage_products<OP>(smem_u32(st), it, acc);
+    stage_products<OP>(smem_u32(st), run_it, acc);
     wgmma_commit();
   }
 }
@@ -363,20 +375,47 @@ __device__ __forceinline__ void issue_products(const OP& op, int it, uint8_t* st
 //   static constexpr int BN, NA (1 or 2 A tiles per stage, summed into one
 //   product: the hi and lo halves of a split operand), TRANS_B;
 //   static constexpr bool TF32 (see stage_products), TRANSFORM (and then
-//   void transform(uint8_t* stage) const, run by every thread once the
-//   stage has arrived; see issue_products);
+//   void transform(int it, uint8_t* stage) const, run by every thread once
+//   the stage has arrived; see issue_products);
 //   static constexpr int STAGES, STAGE_BYTES: the ring (Bf16Ring for bf16);
 //   static constexpr bool REG_A (and then void fragments(int it, const
 //   uint8_t* stage, uint32_t (&frag)[BK / 16][2][4]) const, run by every
 //   thread; see issue_products);
+//   static constexpr int PROMOTE (below);
 //   int iters() const;
 //   void load(int it, uint8_t* a0, uint8_t* a1, uint8_t* b, uint64_t* bar) const
 //     (issues the stage's TMA loads on `bar`, thread 0 only);
 //   uint32_t stage_bytes() const;
 // and returns the sums in acc (the kernel's epilogue writes them out). Each
 // stage holds A tiles at 0 and TILE_BYTES and the B tile(s) at B_OFF.
+//
+// PROMOTE. The tensor cores add each step's products to the float32 sums
+// and truncate the result (round toward zero), so over a long K the error
+// of a large sum grows with the number of steps, one way: a float32 (P, C)
+// GEMM (4 to 9 taps of kp = 1024 positions, 3 products a step) whose sums
+// reach ~170 (the ablation's no_softmax pastes the unnormalised fused
+// scores) drifted 1.4e-3 from the plain version on an H100, against the
+// 3e-4 + 1e-5 max|y| of its gate (tests/test_torch_cuda_kernel.py; a CPU
+// emulation of the truncation gives 1.2e-3). An OP with PROMOTE > 0 runs
+// its products into registers of their own, restarted every PROMOTE stages
+// and added to acc (round to nearest) once the run's products are done: a
+// run's sum is small and its truncation errors take the sign of each run
+// (the emulation: 4.2e-5 at PROMOTE = 4). 0: the products go into acc.
 template <class OP>
-__device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2]) {
+__device__ __forceinline__ void promote(int it, int n_it, float (&part)[OP::BN / 2],
+                                        float (&acc)[OP::BN / 2]) {
+  if ((it + 1) % OP::PROMOTE == 0 || it + 1 == n_it) {
+    wgmma_wait<0>();
+    fence_acc(part);
+#pragma unroll
+    for (int i = 0; i < OP::BN / 2; ++i) acc[i] += part[i];
+  }
+}
+
+// The products go into wacc; with PROMOTE, `promote` adds them to sums.
+template <class OP>
+__device__ __forceinline__ void mainloop_ring(const OP& op, float (&wacc)[OP::BN / 2],
+                                              float (&sums)[OP::BN / 2]) {
   constexpr int B_OFF = OP::NA * TILE_BYTES;
   constexpr int NST = OP::STAGES;
   extern __shared__ uint8_t smem_raw[];
@@ -407,13 +446,13 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
   for (int it = 0; it < n_it; ++it) {
     const int s = it % NST;
     mbar_wait(&full[s], (it / NST) & 1);
-    fence_acc(acc);
-    issue_products(op, it, smem + s * OP::STAGE_BYTES, acc);
+    fence_acc(wacc);
+    issue_products(op, it, smem + s * OP::STAGE_BYTES, wacc);
     // one group stays in flight; this warp's products of the previous one
     // are done, so it releases that stage. The stage is refilled once all
     // four warps have released it: wait_group orders only its own warp.
     wgmma_wait<1>();
-    fence_acc(acc);
+    fence_acc(wacc);
     if (it >= 1) {
       const int prev = it - 1;
       if (tid % 32 == 0) mbar_arrive(&empty[prev % NST]);
@@ -422,9 +461,22 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
         issue(prev + NST);
       }
     }
+    if constexpr (OP::PROMOTE > 0) promote<OP>(it, n_it, wacc, sums);
   }
   wgmma_wait<0>();
-  fence_acc(acc);
+  fence_acc(wacc);
+}
+
+template <class OP>
+__device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2]) {
+  if constexpr (OP::PROMOTE > 0) {
+    float part[OP::BN / 2];
+#pragma unroll
+    for (int i = 0; i < OP::BN / 2; ++i) acc[i] = 0.f;
+    mainloop_ring(op, part, acc);
+  } else {
+    mainloop_ring(op, acc, acc);
+  }
 }
 
 // The mainloop at ring depth 1: synchronous loads. Each iteration loads its
@@ -432,12 +484,13 @@ __device__ __forceinline__ void mainloop(const OP& op, float (&acc)[OP::BN / 2])
 // (wgmma_wait<0>), and the warpgroup meets before the next load overwrites
 // the stage: no load overlaps a product. (`mainloop` with STAGES = 1 would
 // deadlock: it refills a stage one iteration late, after the next `full`
-// wait.) The products are `mainloop`'s, in the same order, so the sums are
-// bit-equal. The kernel keeps the ring's shared-memory request, so that the
+// wait.) The products are `mainloop`'s, in the same order, and so are the
+// promotions, so the sums are bit-equal. The kernel keeps the ring's shared-memory request, so that the
 // blocks an SM holds, and with them the latency other blocks hide, stay the
 // same.
 template <class OP>
-__device__ __forceinline__ void mainloop_sync(const OP& op, float (&acc)[OP::BN / 2]) {
+__device__ __forceinline__ void mainloop_sync_ring(const OP& op, float (&wacc)[OP::BN / 2],
+                                                   float (&sums)[OP::BN / 2]) {
   constexpr int B_OFF = OP::NA * TILE_BYTES;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full;
@@ -456,11 +509,24 @@ __device__ __forceinline__ void mainloop_sync(const OP& op, float (&acc)[OP::BN 
       op.load(it, smem, smem + TILE_BYTES, smem + B_OFF, &full);
     }
     mbar_wait(&full, it & 1);
-    fence_acc(acc);
-    issue_products(op, it, smem, acc);
+    fence_acc(wacc);
+    issue_products(op, it, smem, wacc);
     wgmma_wait<0>();
-    fence_acc(acc);
+    fence_acc(wacc);
+    if constexpr (OP::PROMOTE > 0) promote<OP>(it, n_it, wacc, sums);
     __syncthreads();
+  }
+}
+
+template <class OP>
+__device__ __forceinline__ void mainloop_sync(const OP& op, float (&acc)[OP::BN / 2]) {
+  if constexpr (OP::PROMOTE > 0) {
+    float part[OP::BN / 2];
+#pragma unroll
+    for (int i = 0; i < OP::BN / 2; ++i) acc[i] = 0.f;
+    mainloop_sync_ring(op, part, acc);
+  } else {
+    mainloop_sync_ring(op, acc, acc);
   }
 }
 

@@ -5,8 +5,8 @@
 // timing ablation, experiments/attn_ablate.py: `run` (:247) and
 // `run_padded` (:289) over `_kernel` (:52-243), `run_auto` (:466) over
 // `_kernel_auto` (:326-462) and `run_fold` (:657) over `_kernel_fold`
-// (:504-653). float32 inputs keep the CUDA-core ablation
-// (attention_v2_ablate.cu). healthivert_tpu_torch/experiments/attn_ablate.py
+// (:504-653). float32 inputs take the 3xTF32 ablation
+// (attention_tf32_ablate.cu). healthivert_tpu_torch/experiments/attn_ablate.py
 // holds the wrappers and the plain PyTorch version of every mode.
 //
 // Each mode runs the bf16 forward of attention_tc.cu (its kernels, from
@@ -41,60 +41,16 @@
 // the forward's in the same order, so its y equals attention_v2's bit for
 // bit in either layout and at either ring depth.
 //
-// The natural-layout map. b_full (B, 2hd, 2wd, Cp) is the 5-D tensor
-// (Cp, 2, wd, 2hd, B), innermost first: dim 1 is the column phase t, dim 2
-// the column j of pixel 2j + t, dim 3 the pixel row. A paste tile of
-// phase (r, t) and tap (sy, sx) reads box (64, 1, w, 2h, 1) with element
-// strides (1, 1, 1, 2, 1) at (c0, t, j0 + sx, 2 (i0 + sy) + r, b). The
-// rule cuda.h states for a traversal stride: a box of boxDim[i] elements
-// with elementStrides[i] = 2 loads ceil(boxDim[i] / 2) of them, so 2h rows
-// are asked for to get h, every second pixel row from 2 (i0 + sy) + r.
-// Outside [0, wd) and [0, 2hd) TMA fills zeros, the shift's zero padding,
-// as for the phase planes. The inner box is 64 bf16 = 128 bytes, the
-// 128-byte swizzle's limit, and the tile lands in shared memory exactly as
-// the phase-plane map's (64, w, h) box does. Channels are padded to 64 in
-// the wrapper (nothing to copy at C = 64).
-#include <algorithm>
-
+// The natural-layout map (`natural_map<bf16>`, attention_ablate.cuh) reads
+// boxes of 64 channels by 64 positions.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
+#include "attention_ablate.cuh"
 #include "attention_tc_kernels.cuh"
 
 namespace {
-
-// out[i] = v for i < n, grid-stride.
-template <typename T>
-__global__ void fill_kernel(T* __restrict__ out, float v, size_t n) {
-  const T val = hv_attn::from_f<T>(v);
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x)
-    out[i] = val;
-}
-
-template <typename T>
-int fill_async(void* out, float v, size_t n, cudaStream_t st) {
-  const int blocks = (int)std::min<size_t>((n + 255) / 256, 132 * 32);
-  fill_kernel<T><<<blocks, 256, 0, st>>>(static_cast<T*>(out), v, n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The modes in the order of MODES in experiments/attn_ablate.py.
-enum AblateMode : int {
-  kAblFull = 0, kAblNoScore, kAblNoFuse, kAblNoSoftmax, kAblNoPaste,
-  kAblPasteBf16, kAblFoldNorm, kAblFloor,
-};
-
-// b_full (B, 2hd, 2wd, Cp) for the paste's B operand (see the note above).
-int natural_map(CUtensorMap* map, const void* ptr, const Geom& g, int B) {
-  const int w = g.wdp < BM ? g.wdp : BM;
-  const uint64_t dims[5] = {(uint64_t)g.Cp, 2, (uint64_t)g.wd, (uint64_t)(2 * g.hd),
-                            (uint64_t)B};
-  const uint32_t box[5] = {BK, 1, (uint32_t)w, (uint32_t)(2 * (BM / w)), 1};
-  const uint32_t estride[5] = {1, 1, 1, 2, 1};
-  return make_map(map, ptr, 5, dims, box, estride);
-}
 
 // The score GEMM at ring depth 1.
 template <int KIND>
@@ -168,7 +124,7 @@ int stages(const Args& a, bool score, bool paste, cudaStream_t st) {
     HV_TRY(plane_map(&m_hi, a.pt_hi, g, a.B));
     // paste_bf16 reads no lo plane: its map is never loaded
     HV_TRY(plane_map(&m_lo, PVAR == kPasteBf16 ? a.pt_hi : a.pt_lo, g, a.B));
-    HV_TRY(IO == kNaturalToNatural ? natural_map(&m_b, a.b_op, g, a.B)
+    HV_TRY(IO == kNaturalToNatural ? natural_map<bf16>(&m_b, a.b_op, g, a.B)
                                    : feature_map(&m_b, a.b_op, g, 4, a.B, BM));
   }
   if (score) {

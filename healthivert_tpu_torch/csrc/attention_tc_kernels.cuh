@@ -5,9 +5,10 @@
 // adjoint), and the tensor maps. The bf16 route (attention_tc.cu)
 // instantiates every template at its defaults; its stage ablation
 // (attention_tc_ablate.cu) and v1 (attention_tc_v1.cu) add bf16
-// instantiations, and the float32 route (attention_tf32.cu) instantiates
-// the sweeps with float32 planes (PT = float) and the maps over float32.
-// None of them puts a branch into another's kernels.
+// instantiations, and the float32 route (attention_tf32.cu, its v1 and
+// ablation; GEMMs in attention_tf32_kernels.cuh) instantiates the sweeps
+// with float32 planes (PT = float) and the maps over float32. None of them
+// puts a branch into another's kernels.
 //
 // Everything here has internal linkage (the top-level anonymous namespace,
 // which the including file's own code shares): each translation unit that
@@ -109,6 +110,53 @@ __device__ __forceinline__ void lp_store(const float (&acc)[64], const Geom& g, 
         const int i = 4 * j + 2 * h + e;
         const int p = g.real(n0 + acc_col(tid, i));
         if (p >= 0) row[p] = acc[i] * scale;
+      }
+    }
+  }
+}
+
+// The epilogues of v1's GEMMs (attention_tc_v1.cu, attention_tf32_v1.cu):
+// an (L, P) tile of s (B, L, P) float at rows m0, columns n0, with row
+// scale 1 (wnorm arrives normalised); a (P, C) tile of vals (B, P, C) in T
+// at positions m0, columns c0, cut back to the real C.
+__device__ __forceinline__ void v1_store_scores(const float (&acc)[64], const Geom& g, int b,
+                                                int m0, int n0, float* __restrict__ out) {
+  const int tid = threadIdx.x;
+  const int L = g.L();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int l = g.real(m0 + acc_row(tid, 2 * h));
+    if (l < 0) continue;
+    float* row = out + ((size_t)b * L + l) * L;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        const int p = g.real(n0 + acc_col(tid, i));
+        if (p >= 0) row[p] = acc[i];
+      }
+    }
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void v1_store_vals(const float (&acc)[32], const Geom& g, int b,
+                                              int m0, int c0, T* __restrict__ out) {
+  const int tid = threadIdx.x;
+  const int L = g.L();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = g.real(m0 + acc_row(tid, 2 * h));
+    if (p < 0) continue;
+    T* row = out + ((size_t)b * L + p) * g.C;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 4 * j + 2 * h + e;
+        const int c = c0 + acc_col(tid, i);
+        if (c < g.C) row[c] = hv_attn::from_f<T>(acc[i]);
       }
     }
   }
@@ -336,8 +384,9 @@ constexpr int SOFTMAX_ROWS = 32;
 // MODE (hv_attn::StageMode; the ablation's variants): kNoFuse reads s[l, p]
 // in place of the gather; kNoSoftmax writes the fused scores (no sweep for
 // max and sum, no exp, 1/sum or gate); kPasteBf16 writes the hi plane alone
-// (pt_lo unused); kFoldNorm writes e * g unnormalised and col_inv[b, p] =
-// 1 / sum (B, L).
+// (pt_lo unused), each value rounded to bf16 (kept in float32 when PT =
+// float); kFoldNorm writes e * g unnormalised and col_inv[b, p] = 1 / sum
+// (B, L).
 template <int MODE = kFull, typename PT = bf16>
 __global__ void __launch_bounds__(SM_COLS * SOFTMAX_ROWS)
 fuse_softmax_tc_kernel(const float* __restrict__ s, const float* __restrict__ mm,
@@ -406,7 +455,9 @@ fuse_softmax_tc_kernel(const float* __restrict__ s, const float* __restrict__ mm
         }
         if (probs != nullptr) probs[((size_t)b * L + l) * L + p] = v;
       }
-      if constexpr (MODE == kPasteBf16) {
+      if constexpr (MODE == kPasteBf16 && std::is_same_v<PT, float>) {
+        tile[0][tx][kk] = __bfloat162float(__float2bfloat16(v));
+      } else if constexpr (MODE == kPasteBf16) {
         tile[0][tx][kk] = __float2bfloat16(v);
       } else {
         split(v, tile[0][tx][kk], tile[1][tx][kk]);

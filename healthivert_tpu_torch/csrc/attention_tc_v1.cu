@@ -7,8 +7,8 @@
 // that arrive already divided by their norm, raw patches raw (B, L, RC) and
 // the gate mm (B, L), the scores s = wnorm fpat^T, both fuse passes, the
 // gated column softmax and the patch values vals = probs^T raw (B, P, RC),
-// before any fold. L = P = hd * wd. float32 inputs keep the CUDA-core
-// kernels of attention_v1.cu. healthivert_tpu_torch/ops/attention_cuda.py
+// before any fold. L = P = hd * wd. float32 inputs take the 3xTF32 route
+// of attention_tf32_v1.cu. healthivert_tpu_torch/ops/attention_cuda.py
 // holds the wrapper (the K and RC zero pad to a multiple of 64, the
 // scratch) and the plain PyTorch version.
 //
@@ -31,8 +31,7 @@
 //     indices with row scale 1: wnorm arrives normalised, no norm is taken.
 //   * fuse + softmax: #1's fuse_softmax_tc_kernel, unchanged: it writes
 //     probs^T in hi and lo bf16 planes (B, P, kp), the paste's A operand,
-//     and no float32 probs (the CUDA-core v1 wrote a 268 MB probs plane at
-//     B = 64 that no caller reads).
+//     and no float32 probs (v1 returns none).
 //   * paste: v1_gemm<kV1Paste>, #1's (P, C) tile (m64n64) with one tap, no
 //     shift and no phases: M = output positions p, N = 64 columns of RC,
 //     K = kp positions l. A is the hi/lo planes (two products a step, so
@@ -97,8 +96,6 @@ __global__ void __launch_bounds__(THREADS)
 v1_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap ma_lo,
         const __grid_constant__ CUtensorMap mb, Geom g, void* __restrict__ out) {
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int L = g.L();
   const int m0 = blockIdx.y * BM;
   if constexpr (KIND == kV1Score) {
     const int n0 = blockIdx.x * 128;
@@ -106,41 +103,13 @@ v1_gemm(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensor
                        g.Cp / BK};
     float acc[64];
     mainloop(op, acc);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int l = g.real(m0 + acc_row(tid, 2 * h));
-      if (l < 0) continue;
-      float* row = static_cast<float*>(out) + ((size_t)b * L + l) * L;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          const int p = g.real(n0 + acc_col(tid, i));
-          if (p >= 0) row[p] = acc[i];
-        }
-      }
-    }
+    v1_store_scores(acc, g, b, m0, n0, static_cast<float*>(out));
   } else {
     const int c0 = blockIdx.x * 64;
     const V1PasteOp op{{}, &ma, &ma_lo, &mb, b, m0 / g.wdp, m0 % g.wdp, c0, g.wdp, g.kp / BK};
     float acc[32];
     mainloop(op, acc);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int p = g.real(m0 + acc_row(tid, 2 * h));
-      if (p < 0) continue;
-      bf16* row = static_cast<bf16*>(out) + ((size_t)b * L + p) * g.C;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = 4 * j + 2 * h + e;
-          const int c = c0 + acc_col(tid, i);
-          if (c < g.C) row[c] = __float2bfloat16(acc[i]);
-        }
-      }
-    }
+    v1_store_vals(acc, g, b, m0, c0, static_cast<bf16*>(out));
   }
 }
 

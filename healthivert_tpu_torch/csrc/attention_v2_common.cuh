@@ -1,11 +1,9 @@
-// Helpers shared by the contextual-attention kernels, the CUDA-core ones
-// (attention_v2_kernels.cuh) and the tensor-core routes (attention_tc.cu,
-// attention_tf32.cu):
-// type conversion, the GEMM tile shape, the zero-filled 2-D shift of a
-// feature map, the sigma+/sigma- steps of the second fuse pass, the fuse
-// adjoint and the softmax backward. Inline functions, templates and
-// constants only, so that every translation unit of the library can
-// include it.
+// Helpers shared by the contextual-attention kernels of the tensor-core
+// routes (attention_tc.cu, attention_tf32.cu and their v1 and ablation):
+// type conversion, the column-sweep block shape, the sigma+/sigma- steps
+// of the second fuse pass, the fuse adjoint and the softmax backward.
+// Inline functions, templates and constants only, so that every
+// translation unit of the library can include it.
 //
 // Layouts: feature maps (B, hd, wd, C) and full-resolution maps
 // (B, 2hd, 2wd, C), NHWC, T = float or __nv_bfloat16; (L, P) matrices float,
@@ -25,29 +23,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(x);
 }
 
-// GEMM tiles: 64 x 64 outputs per block, 16-deep steps, 256 threads that
-// each own a 4 x 4 patch of the tile.
-constexpr int TM = 64;
-constexpr int TN = 64;
-constexpr int TK = 16;
-constexpr int GEMM_THREADS = 256;
-constexpr int SMEM_PAD = 4;
-
 // Column-sweep blocks over an (L, P) matrix: 32 query columns per block, one
 // per lane, and 8 row groups, one per warp.
 constexpr int SM_COLS = 32;
 constexpr int SM_ROWS = 8;
-
-// Value of a (hd, wd, C) feature map at grid index `pos` shifted by
-// (dy, dx), zero outside the grid: a 2-D shift, never a shift of the
-// flattened index (which would wrap across rows).
-template <typename T>
-__device__ __forceinline__ float shifted(const T* __restrict__ base, int pos, int dy, int dx,
-                                         int c, int hd, int wd, int C) {
-  const int y = pos / wd + dy, x = pos % wd + dx;
-  if (y < 0 || y >= hd || x < 0 || x >= wd || c >= C) return 0.f;
-  return to_f(base[((size_t)y * wd + x) * C + c]);
-}
 
 // The +-1 steps of the transposed flatten of the (L/n, n) grid; -1 marks the
 // invalid end (zero in the reference's permuted shifts).
@@ -116,20 +95,6 @@ softmax_bwd_kernel(const float* __restrict__ probs, const float* __restrict__ mm
       const float gl = g[l];
       gb[at] = pb[at] * (gb[at] * gl - tcol) * gl * scale;
     }
-  }
-}
-
-// One 16-deep step of a 64 x 64 tile product: acc[i][j] += sum over k of
-// As[k][ty * 4 + i] * Bs[k][tx * 4 + j].
-__device__ __forceinline__ void tile_fma(const float (*As)[TM + SMEM_PAD],
-                                         const float (*Bs)[TN + SMEM_PAD], int tx, int ty,
-                                         float (&acc)[4][4]) {
-  for (int k = 0; k < TK; ++k) {
-    float a[4], bv[4];
-    for (int i = 0; i < 4; ++i) a[i] = As[k][ty * 4 + i];
-    for (int j = 0; j < 4; ++j) bv[j] = Bs[k][tx * 4 + j];
-    for (int i = 0; i < 4; ++i)
-      for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * bv[j];
   }
 }
 

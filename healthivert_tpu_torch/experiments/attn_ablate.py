@@ -11,28 +11,27 @@ that must match `full`:
   no_fuse      the softmax of the unfused scores          -> fuse cost
   no_softmax   probs = the fused scores as they stand     -> softmax cost
   no_paste     y = 0, no paste GEMM                       -> paste cost
-  paste_bf16   CANDIDATE: probs rounded once to bf16 for the paste (on the
-               tensor-core route: the hi plane alone, one product in place
-               of the hi/lo pair; on the CUDA cores: probs and b_full
-               rounded to bf16, sums in float32)
+  paste_bf16   CANDIDATE: probs rounded once to bf16 for the paste (bf16:
+               the hi plane alone, one product in place of the hi/lo pair;
+               float32: probs and b_full rounded to bf16, exact in TF32,
+               one product in place of the three of 3xTF32)
   fold_norm    CANDIDATE: the softmax stores exp * g unnormalised, and each
                probs column's 1/sum scales it as the paste loads it
   floor        y = 0 and nothing else: the launch floor
 
-The dtype picks the design:
-  bfloat16  the tensor-core route, csrc/attention_tc_ablate.cu: the
-            kernels of csrc/attention_tc.cu (TMA-fed wgmma score and paste
-            GEMMs, the fuse + softmax sweep writing probs split hi/lo), each
-            mode an instantiation; channels zero-padded to 64 here (no copy
-            at C = 64). `full` equals `attention_v2` bit for bit.
-  float32   the CUDA-core route, csrc/attention_v2_ablate.cu: the first
-            forward's four kernels (attention_v2_kernels.cuh), the mode a
-            compile-time switch. The float32 `attention_v2` itself now runs
-            on the tensor cores (csrc/attention_tf32.cu), so `full` agrees
-            with it within y's float32 gate, not bit for bit.
-No switch and no fallback: a bf16 launch the tensor-core route refuses
-raises. Its four entry functions keep the JAX names and arguments, minus
-the TPU-only channel padding to 128 lanes and its lane packing:
+The dtype picks the route, both on the tensor cores, each mode an
+instantiation of the forward's kernels and channels zero-padded to 64 here
+(no copy at C = 64); `full` equals `attention_v2` of the same dtype bit for
+bit:
+  bfloat16  csrc/attention_tc_ablate.cu: the kernels of
+            csrc/attention_tc.cu (TMA-fed wgmma score and paste GEMMs, the
+            fuse + softmax sweep writing probs split hi/lo), a ring of 4
+  float32   csrc/attention_tf32_ablate.cu: the kernels of
+            csrc/attention_tf32.cu (the same GEMMs in 3xTF32, every operand
+            split into TF32 big and small halves), a ring of 2
+No switch and no fallback: a launch the route refuses raises. Its four
+entry functions keep the JAX names and arguments, minus the TPU-only
+channel padding to 128 lanes and its lane packing:
 
   run         the wrapper's layout work in PyTorch (b_full split into its
               2 x 2 phase planes, the output interleaved back), around the
@@ -43,17 +42,17 @@ the TPU-only channel padding to 128 lanes and its lane packing:
               tensor-core route its paste reads b_full through a tensor map
               with element stride 2 (every second row, one column phase)
   run_auto    on the TPU, `run` with Mosaic's automatic double-buffered
-              block pipeline in place of manual DMAs. On the tensor-core
-              route: `run` with every GEMM's TMA ring at depth 1 (each tile
-              loaded, waited for and multiplied before the next load), so
-              that auto - full is what the 4-stage ring buys. The CUDA-core
-              kernels have no ring: there it is `run`'s launch
+              block pipeline in place of manual DMAs. Here: `run` with every
+              GEMM's TMA ring at depth 1 (each tile loaded, waited for and
+              multiplied before the next load), so that auto - full is what
+              the forward's ring (4 stages in bf16, 2 in float32) buys
 
 On a CUDA tensor each launches the kernel or raises, and counts its
-launches in `.launches` (`attention_v2_ablate.tc_launches` counts those on
-the tensor-core route); on a CPU tensor it runs the plain PyTorch version
-of the mode (`ablate_reference`). `main` also times the v1 kernel
-(`attention_scores_paste`, patch tensors built beforehand) against `full`.
+launches in `.launches` (`attention_v2_ablate.tc_launches` and
+`.tf32_launches` count those on the bf16 and the float32 route); on a CPU
+tensor it runs the plain PyTorch version of the mode (`ablate_reference`).
+`main` also times the v1 kernel (`attention_scores_paste`, patch tensors
+built beforehand) against `full`.
 
 Run on the card:  python -m healthivert_tpu_torch.experiments.attn_ablate [batch]
 """
@@ -71,6 +70,7 @@ from ..ops.attention_cuda import (
     _check,
     _tc_call,
     attention_scores_paste,
+    check_aligned,
     load_library,
     pad_channels,
     tc_geometry,
@@ -86,8 +86,8 @@ LAYOUTS = ("natural", "phases")
 # each stage's cost is full's time minus that of the mode without it
 STAGE_MODES = {"score": "no_score", "fuse": "no_fuse", "softmax": "no_softmax",
                "paste": "no_paste"}
-# the tensor-core route's TMA ring depths: the forward's, and run_auto's
-RING, RING_SYNC = 4, 1
+# TMA ring depths: the forward's on each route, and run_auto's
+RINGS, RING_SYNC = {torch.bfloat16: 4, torch.float32: 2}, 1
 # main's setting, the JAX main's: a 32 x 32 grid of 64 channels in bf16,
 # seed 0, and timing windows of 10 calls
 GRID, CHANNELS, DTYPE, SEED, REPS = 32, 64, torch.bfloat16, 0, 10
@@ -185,48 +185,27 @@ def _check_ablate(fd, bd, b_in, mm, hd, wd, mode, layout):
 
 
 def attention_v2_ablate(fd, bd, b_in, mm, hd: int, wd: int, scale: float = 10.0,
-                        mode: str = "full", layout: str = "natural", ring: int = RING):
+                        mode: str = "full", layout: str = "natural", ring: int | None = None):
     """One mode of the forward in one layout: the kernel on a CUDA tensor
     (uncounted; the entry functions below count), the plain version on a
     CPU tensor. b_in is b_full (natural) or its phase planes (phases); the
-    result has b_in's shape and fd's dtype. ring: the tensor-core route's
-    TMA ring depth, RING or RING_SYNC (phase layout only); the CUDA-core
-    route takes RING alone."""
+    result has b_in's shape and fd's dtype. ring: the TMA ring depth of
+    every GEMM, the forward's (None, or RINGS[dtype]) or RING_SYNC (phase
+    layout only)."""
     if fd.device.type == "cpu":
         return ablate_layout_reference(fd, bd, b_in, mm, hd, wd, scale, mode, layout)
     if fd.device.type != "cuda":
         raise ValueError(f"attention_v2_ablate: no kernel for device {fd.device}")
     _check_ablate(fd, bd, b_in, mm, hd, wd, mode, layout)
-    if ring not in (RING, RING_SYNC):
-        raise ValueError(f"attention_v2_ablate: ring {ring} is not {RING} or {RING_SYNC}")
-    if fd.dtype == torch.bfloat16:
-        return _ablate_tc(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring)
-    if ring != RING:
-        raise ValueError("attention_v2_ablate: the float32 (CUDA-core) route has no TMA ring")
-    lib, _ = load_library()
-    bs, c = fd.shape[0], fd.shape[-1]
-    num_l = hd * wd
-    dev = fd.device
-    f32 = torch.float32
-    y = torch.empty_like(b_in)
-    s = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
-    probs = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
-    probs16 = _scratch((bs, num_l, num_l), torch.bfloat16, dev, mode == "paste_bf16")
-    col_inv = _scratch((bs, num_l), f32, dev, mode == "fold_norm")
-    nrm_raw = _scratch((bs, num_l), f32, dev, mode not in ("floor", "no_score"))
-    with torch.cuda.device(dev):
-        rc = lib.hv_attention_v2_ablate(
-            fd.data_ptr(), bd.data_ptr(), b_in.data_ptr(), mm.data_ptr(), y.data_ptr(),
-            _ptr(s), _ptr(probs), _ptr(probs16), _ptr(col_inv), _ptr(nrm_raw),
-            bs, hd, wd, c, float(scale), MODES.index(mode), LAYOUTS.index(layout),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention_v2_ablate kernel launch failed: CUDA error {rc}")
-    return y
+    ring = RINGS[fd.dtype] if ring is None else ring
+    if ring not in (RINGS[fd.dtype], RING_SYNC):
+        raise ValueError(f"attention_v2_ablate: ring {ring} is not {RINGS[fd.dtype]} or "
+                         f"{RING_SYNC} for {fd.dtype}")
+    return _ablate_kernel(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring)
 
 
 attention_v2_ablate.tc_launches = 0  # launches on the bf16 tensor-core route
+attention_v2_ablate.tf32_launches = 0  # launches on the float32 (3xTF32) route
 
 
 def _scratch(shape, dtype, device, used):
@@ -239,37 +218,54 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _ablate_tc(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring):
-    """attention_v2_ablate on the bf16 tensor-core route
-    (csrc/attention_tc_ablate.cu): no float32 probs; the paste's operand
-    probsT in hi and lo bf16 planes (hi alone for paste_bf16)."""
+def _ablate_kernel(fd, bd, b_in, mm, hd, wd, scale, mode, layout, ring):
+    """attention_v2_ablate on the route of fd's dtype: bf16
+    (csrc/attention_tc_ablate.cu; the paste's operand probsT in hi and lo
+    bf16 planes, hi alone for paste_bf16) or float32
+    (csrc/attention_tf32_ablate.cu; probsT in big and small float32 planes,
+    big alone for paste_bf16, and fd's and bd's big and small halves (4, B,
+    hd, wd, Cp); fd and bd go to split_kernel: `check_aligned`). No float32
+    probs."""
     lib, _ = load_library()
     bs, c = fd.shape[0], fd.shape[-1]
     cp = -(-c // 64) * 64
     wdp, kp = tc_geometry(hd, wd)
     num_l = hd * wd
     dev = fd.device
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32 = fd.dtype == torch.float32
+    pt_dtype = torch.float32 if f32 else torch.bfloat16
     fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
     if layout == "natural":
         b_op = pad_channels(b_in, cp)
     else:
         b_op = pad_channels(b_in.view(bs, 4, hd, wd, c), cp)
+    scores = mode not in ("floor", "no_score")
     y = torch.empty_like(b_in)
-    s = _scratch((bs, num_l, num_l), f32, dev, mode != "floor")
-    nrm_raw = _scratch((bs, num_l), f32, dev, mode not in ("floor", "no_score"))
-    pt_hi = _scratch((bs, num_l, kp), bf16, dev, mode != "floor")
-    pt_lo = _scratch((bs, num_l, kp), bf16, dev, mode not in ("floor", "paste_bf16"))
-    col_inv = _scratch((bs, num_l), f32, dev, mode == "fold_norm")
+    s = _scratch((bs, num_l, num_l), torch.float32, dev, mode != "floor")
+    nrm_raw = _scratch((bs, num_l), torch.float32, dev, scores)
+    pt_hi = _scratch((bs, num_l, kp), pt_dtype, dev, mode != "floor")
+    pt_lo = _scratch((bs, num_l, kp), pt_dtype, dev, mode not in ("floor", "paste_bf16"))
+    col_inv = _scratch((bs, num_l), torch.float32, dev, mode == "fold_norm")
+    if f32:
+        if scores:
+            check_aligned("attention_v2_ablate", fd=fd_p, bd=bd_p)
+        maps = [_ptr(_scratch((4, bs, hd, wd, cp), torch.float32, dev, scores))]
+        fn, name = lib.hv_attention_tf32_ablate, "attention_v2_ablate (3xTF32)"
+    else:
+        maps = []
+        fn, name = lib.hv_attention_tc_ablate, "attention_v2_ablate (tensor cores)"
     with torch.cuda.device(dev):
-        rc = lib.hv_attention_tc_ablate(
+        rc = fn(
             fd_p.data_ptr(), bd_p.data_ptr(), b_op.data_ptr(), mm.data_ptr(), y.data_ptr(),
-            _ptr(s), _ptr(nrm_raw), _ptr(pt_hi), _ptr(pt_lo), _ptr(col_inv),
+            _ptr(s), _ptr(nrm_raw), *maps, _ptr(pt_hi), _ptr(pt_lo), _ptr(col_inv),
             bs, hd, wd, c, cp, wdp, kp, float(scale), MODES.index(mode),
             LAYOUTS.index(layout), ring, torch.cuda.current_stream(dev).cuda_stream,
         )
-    _tc_call("attention_v2_ablate (tensor cores)", rc)
-    attention_v2_ablate.tc_launches += 1
+    _tc_call(name, rc)
+    if f32:
+        attention_v2_ablate.tf32_launches += 1
+    else:
+        attention_v2_ablate.tc_launches += 1
     return y
 
 
@@ -296,11 +292,9 @@ def run_padded(fd, bd, bph, mm, hd: int, wd: int, scale: float = 10.0, mode: str
 
 def run_auto(fd, bd, b_full, mm, hd: int, wd: int, scale: float = 10.0, mode: str = "full"):
     """JAX `run_auto` (:466): `run`'s function with each GEMM's TMA ring at
-    depth 1 on the tensor-core route (bf16); `run`'s launch on the CUDA
-    cores (float32), which have no ring. Returns y (B, 2hd, 2wd, C)."""
-    ring = RING_SYNC if fd.dtype == torch.bfloat16 else RING
+    depth 1, on either route. Returns y (B, 2hd, 2wd, C)."""
     out = attention_v2_ablate(fd, bd, to_phases(b_full, hd, wd), mm, hd, wd, scale, mode,
-                              "phases", ring)
+                              "phases", RING_SYNC)
     if out.is_cuda:
         run_auto.launches += 1
     return from_phases(out)

@@ -18,13 +18,14 @@ tensor each runs its plain PyTorch version (`attention_v2_reference`,
 package. `AttentionV2Function` is the counterpart of the custom VJP
 `attention_v2_diff` (:822-850). `attention_scores_paste` replaces the v1
 Pallas kernel `attention_scores_paste` (:199, body `_attention_kernel`
-:98-195), which works on patch tensors built beforehand: bfloat16 on the
-tensor cores (csrc/attention_tc_v1.cu, the forward's tensor-core pieces
-with one tap), float32 on the CUDA cores (csrc/attention_v1.cu); plain
-version `attention_scores_paste_reference`.
+:98-195), which works on patch tensors built beforehand, on the same two
+routes with one tap: bfloat16 in csrc/attention_tc_v1.cu, float32 in
+csrc/attention_tf32_v1.cu (3xTF32); plain version
+`attention_scores_paste_reference`.
 The library also holds the forward's stage ablation on both routes
-(csrc/attention_tc_ablate.cu for bf16, csrc/attention_v2_ablate.cu for
+(csrc/attention_tc_ablate.cu for bf16, csrc/attention_tf32_ablate.cu for
 float32), whose wrappers live in `healthivert_tpu_torch.experiments.attn_ablate`.
+No kernel of the library runs a GEMM on the CUDA cores.
 
 Each kernel's source note says what bounds it on an H100 and what its
 design does about it.
@@ -55,9 +56,10 @@ from .contextual_attention import (
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("attention_tc.cu", "attention_tf32.cu", "attention_v1.cu", "attention_tc_v1.cu",
-           "attention_v2_ablate.cu", "attention_tc_ablate.cu", "attention_v2_common.cuh",
-           "attention_v2_kernels.cuh", "attention_tc.cuh", "attention_tc_kernels.cuh")
+SOURCES = ("attention_tc.cu", "attention_tf32.cu", "attention_tc_v1.cu", "attention_tf32_v1.cu",
+           "attention_tc_ablate.cu", "attention_tf32_ablate.cu", "attention_v2_common.cuh",
+           "attention_v2_kernels.cuh", "attention_tc.cuh", "attention_tc_kernels.cuh",
+           "attention_tf32_kernels.cuh", "attention_ablate.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -151,23 +153,19 @@ def load_library(force_build: bool = False):
                 ctypes.c_float, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
-            fn = lib.hv_attention_scores_paste
-            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [
-                ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            fn = lib.hv_attention_tc_scores_paste
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
-                ctypes.c_float, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-            fn = lib.hv_attention_v2_ablate
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
+            for name in ("hv_attention_tc_scores_paste", "hv_attention_tf32_scores_paste"):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
+                    ctypes.c_float, ctypes.c_void_p,
+                ]
+                fn.restype = ctypes.c_int
             fn = lib.hv_attention_tc_ablate
             fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            fn.restype = ctypes.c_int
+            fn = lib.hv_attention_tf32_ablate
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -278,6 +276,16 @@ def to_phase_planes(x, hd: int, wd: int, cp: int):
     return out
 
 
+def check_aligned(name, **tensors):
+    """Raises ValueError for a tensor that does not start on a 16-byte
+    boundary: the float32 route's split_kernel reads four floats at a time
+    with no tensor map to check the address first, and a misaligned read
+    would poison the CUDA context instead of raising."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} (3xTF32): {key} must start on a 16-byte boundary")
+
+
 def _tc_call(name, rc):
     if rc >= 1000:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult {rc - 1000}")
@@ -321,10 +329,8 @@ def _attention_tc(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
 def _attention_tf32(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
     """attention_v2 on the float32 route (csrc/attention_tf32.cu), laid out
     as the bf16 route. Scratch: fd's and bd's big and small halves, and
-    probs^T's (2, B, P, kp); float32 probs only with emit_residuals.
-    split_kernel reads fd and bd four floats at a time with no tensor map
-    to check their address first, so a view that is not 16-byte aligned
-    (at C == Cp it is passed on uncopied) raises here."""
+    probs^T's (2, B, P, kp); float32 probs only with emit_residuals. fd and
+    bd go to split_kernel (uncopied at C == Cp): `check_aligned`."""
     lib, _ = load_library()
     bs, c = fd.shape[0], fd.shape[-1]
     cp = -(-c // 64) * 64
@@ -333,9 +339,7 @@ def _attention_tf32(fd, bd, b_full, mm, hd, wd, scale, emit_residuals):
     dev = fd.device
     f32 = torch.float32
     fd_p, bd_p = pad_channels(fd, cp), pad_channels(bd, cp)
-    for name, t in (("fd", fd_p), ("bd", bd_p)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"attention_v2 (3xTF32): {name} must start on a 16-byte boundary")
+    check_aligned("attention_v2", fd=fd_p, bd=bd_p)
     bph = to_phase_planes(b_full, hd, wd, cp)
     y = torch.empty((bs, 2 * hd, 2 * wd, c), dtype=f32, device=dev)
     s = torch.empty((bs, num_l, num_l), dtype=f32, device=dev)
@@ -561,64 +565,61 @@ def attention_scores_paste(fpat, wnorm, raw, mm, hd: int, wd: int, scale: float 
     if fpat.device.type != "cuda":
         raise ValueError(f"attention_scores_paste: no kernel for device {fpat.device}")
     _check_v1(fpat, wnorm, raw, mm, hd, wd)
-    if fpat.dtype == torch.bfloat16:
-        return _attention_tc_v1(fpat, wnorm, raw, mm, hd, wd, scale)
-    lib, _ = load_library()
-    bs, num_l, k = fpat.shape
-    num_r = raw.shape[-1]
-    dev = fpat.device
-    vals = torch.empty((bs, num_l, num_r), dtype=fpat.dtype, device=dev)
-    s = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
-    probs = torch.empty_like(s)
-    with torch.cuda.device(dev):
-        rc = lib.hv_attention_scores_paste(
-            fpat.data_ptr(), wnorm.data_ptr(), raw.data_ptr(), mm.data_ptr(),
-            vals.data_ptr(), s.data_ptr(), probs.data_ptr(),
-            bs, hd, wd, k, num_r, float(scale), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"attention_scores_paste kernel launch failed: CUDA error {rc}")
-    attention_scores_paste.launches += 1
-    return vals
+    return _attention_v1_kernel(fpat, wnorm, raw, mm, hd, wd, scale)
 
 
 attention_scores_paste.launches = 0  # kernel launches in this process, both routes
 attention_scores_paste.tc_launches = 0  # of which on the bf16 tensor-core route
+attention_scores_paste.tf32_launches = 0  # of which on the float32 (3xTF32) tensor-core route
 
 
 def v1_tc_operands(fpat, wnorm, raw):
-    """fpat, wnorm and raw as the tensor-core route reads them: K and RC
+    """fpat, wnorm and raw as the tensor-core routes read them: K and RC
     zero-padded to multiples of 64 (TMA strides rows in 16-byte steps and
-    reads boxes of 64 channels; zero channels add nothing to a score or a
-    paste), copied only where a pad is needed (not at the generator's K =
-    576, RC = 1024)."""
+    reads boxes of 64 bf16 or 32 float32 channels; zero channels add
+    nothing to a score or a paste), copied only where a pad is needed (not
+    at the generator's K = 576, RC = 1024)."""
     k_pad, r_pad = -(-fpat.shape[-1] // 64) * 64, -(-raw.shape[-1] // 64) * 64
     return pad_channels(fpat, k_pad), pad_channels(wnorm, k_pad), pad_channels(raw, r_pad)
 
 
-def _attention_tc_v1(fpat, wnorm, raw, mm, hd, wd, scale):
-    """attention_scores_paste on the bf16 tensor-core route
-    (csrc/attention_tc_v1.cu); vals cut back to the real RC by the kernel."""
+def _attention_v1_kernel(fpat, wnorm, raw, mm, hd, wd, scale):
+    """attention_scores_paste on the tensor-core route of fpat's dtype:
+    bf16 (csrc/attention_tc_v1.cu; scratch s and probs^T's hi and lo bf16
+    planes) or float32 (csrc/attention_tf32_v1.cu, 3xTF32; scratch s,
+    fpat's and wnorm's big and small halves (4, B, P, Kp), probs^T's (2, B,
+    P, kp); fpat and wnorm go to split_kernel: `check_aligned`). vals is cut
+    back to the real RC by the kernel."""
     lib, _ = load_library()
     bs, num_l, k = fpat.shape
     num_r = raw.shape[-1]
     wdp, kp = tc_geometry(hd, wd)
     dev = fpat.device
+    f32 = fpat.dtype == torch.float32
     fpat_p, wnorm_p, raw_p = v1_tc_operands(fpat, wnorm, raw)
     vals = torch.empty((bs, num_l, num_r), dtype=fpat.dtype, device=dev)
     s = torch.empty((bs, num_l, num_l), dtype=torch.float32, device=dev)
-    pt_hi = torch.empty((bs, num_l, kp), dtype=torch.bfloat16, device=dev)
-    pt_lo = torch.empty_like(pt_hi)
+    if f32:
+        check_aligned("attention_scores_paste", fpat=fpat_p, wnorm=wnorm_p)
+        scratch = (torch.empty((4, bs, num_l, fpat_p.shape[-1]), dtype=fpat.dtype, device=dev),
+                   torch.empty((2, bs, num_l, kp), dtype=fpat.dtype, device=dev))
+        fn, name = lib.hv_attention_tf32_scores_paste, "attention_scores_paste (3xTF32)"
+    else:
+        scratch = [torch.empty((bs, num_l, kp), dtype=torch.bfloat16, device=dev) for _ in range(2)]
+        fn, name = lib.hv_attention_tc_scores_paste, "attention_scores_paste (tensor cores)"
     with torch.cuda.device(dev):
-        rc = lib.hv_attention_tc_scores_paste(
+        rc = fn(
             fpat_p.data_ptr(), wnorm_p.data_ptr(), raw_p.data_ptr(), mm.data_ptr(),
-            vals.data_ptr(), s.data_ptr(), pt_hi.data_ptr(), pt_lo.data_ptr(),
+            vals.data_ptr(), s.data_ptr(), *(t.data_ptr() for t in scratch),
             bs, hd, wd, k, fpat_p.shape[-1], num_r, raw_p.shape[-1], wdp, kp, float(scale),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _tc_call("attention_scores_paste (tensor cores)", rc)
+    _tc_call(name, rc)
     attention_scores_paste.launches += 1
-    attention_scores_paste.tc_launches += 1
+    if f32:
+        attention_scores_paste.tf32_launches += 1
+    else:
+        attention_scores_paste.tc_launches += 1
     return vals
 
 

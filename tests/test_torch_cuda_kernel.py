@@ -1,10 +1,10 @@
 """The CUDA attention kernels (forward, backward, the v1 patch attention
 and the forward's stage ablation) against their plain PyTorch versions, on
 the card. bf16 forward, backward, v1 and ablation run the tensor-core route
-(csrc/attention_tc.cu, attention_tc_v1.cu, attention_tc_ablate.cu); the
-float32 forward and backward the tensor cores in 3xTF32
-(csrc/attention_tf32.cu), float32 v1 and ablation the CUDA cores
-(attention_v1.cu, attention_v2_ablate.cu); the same tolerances hold all.
+(csrc/attention_tc.cu, attention_tc_v1.cu, attention_tc_ablate.cu); their
+float32 counterparts the tensor cores in 3xTF32 (csrc/attention_tf32.cu,
+attention_tf32_v1.cu, attention_tf32_ablate.cu); the same tolerances hold
+all.
 
 Marked `cuda`: each test decides at run time whether there is a card and
 skips with a reason otherwise. The file imports no JAX, so on a machine
@@ -119,15 +119,24 @@ def test_dtype_picks_the_route(cuda_device):
 
 
 @pytest.mark.parametrize("direction", ["forward_B64", "backward_B32", "backward_B64", "v1_B64",
-                                       "forward_B64_f32", "backward_B32_f32"])
+                                       "forward_B64_f32", "backward_B32_f32", "v1_B64_f32"])
 def test_tensor_core_route_at_production_shapes(cuda_device, direction):
     """The main path's shapes (32 x 32, C = 64; the forward at the 3D
     driver's batch of 64, the backward at the recipe's 32, v1 at the
     ablation's 64 with K = 576, RC = 1024), bf16, at the tolerances above;
     the backward at 64, where B * L = 65536 rows pass the 65535 limit of a
-    grid's y and z; and the float32 (3xTF32) forward at 64 and backward at
-    32, on the route each counts."""
-    if direction.endswith("_f32"):
+    grid's y and z; and the float32 (3xTF32) forward at 64, backward at
+    32 and v1 at 64, on the route each counts."""
+    if direction == "v1_B64_f32":
+        fd, bd, b_full, mm = make_inputs(64, 32, 32, 64, "middle", torch.float32, cuda_device)
+        patches = v1_patches(fd, bd, b_full)
+        before = attention_scores_paste.tf32_launches
+        got = attention_scores_paste(*patches, mm, 32, 32, 10.0)
+        torch.cuda.synchronize()
+        assert attention_scores_paste.tf32_launches == before + 1
+        want = attention_scores_paste_reference(*patches, mm, 32, 32, 10.0)
+        torch.testing.assert_close(got, want, rtol=0, atol=3e-4)
+    elif direction.endswith("_f32"):
         b = int(direction.split("_B")[1].split("_")[0])
         if direction.startswith("forward"):
             fd, bd, b_full, mm = make_inputs(b, 32, 32, 64, "middle", torch.float32, cuda_device)
@@ -283,14 +292,15 @@ def test_v1_kernel_matches_plain(cuda_device, shape, band, dtype):
     b, hd, wd, c = shape
     fd, bd, b_full, mm = make_inputs(b, hd, wd, c, band, dtype, cuda_device)
     patches = v1_patches(fd, bd, b_full)
-    before = (attention_scores_paste.launches, attention_scores_paste.tc_launches)
+    counters = lambda: [getattr(attention_scores_paste, k)
+                        for k in ("launches", "tc_launches", "tf32_launches")]
+    before = counters()
     got = attention_scores_paste(*patches, mm, hd, wd, 10.0)
     torch.cuda.synchronize()
-    # bf16 on the tensor-core route (K = 180 padded to 192 at C = 20),
-    # float32 on the CUDA cores (attention_v1.cu)
+    # bf16 on the bf16 tensor-core route, float32 on the 3xTF32 route (K =
+    # 180 padded to 192 at C = 20)
     tc = int(dtype == torch.bfloat16)
-    assert (attention_scores_paste.launches, attention_scores_paste.tc_launches) == (
-        before[0] + 1, before[1] + tc)
+    assert [a - n for a, n in zip(counters(), before)] == [1, tc, 1 - tc]
     want = attention_scores_paste_reference(*patches, mm, hd, wd, 10.0)
     assert got.dtype == dtype and got.shape == (b, hd * wd, 16 * c)
     if dtype == torch.float32:
@@ -302,7 +312,7 @@ def test_v1_kernel_matches_plain(cuda_device, shape, band, dtype):
 def test_v1_tc_raises_where_the_route_cannot_go(cuda_device):
     """A bf16 v1 call whose operand TMA cannot read (two bytes off a
     16-byte boundary; K = 576 is not copied by the pad) raises and counts
-    no launch; it does not drop to the CUDA cores."""
+    no launch; there is no other route to drop to."""
     fd, bd, b_full, mm = make_inputs(1, 8, 8, 64, "middle", torch.bfloat16, cuda_device)
     fpat, wnorm, raw = v1_patches(fd, bd, b_full)
     off = torch.empty(fpat.numel() + 1, dtype=fpat.dtype, device=fpat.device)[1:]
@@ -335,6 +345,28 @@ def test_tf32_raises_on_a_misaligned_input(cuda_device, name):
     y = attention_v2(*{**inputs, name: x}.values(), 8, 8)  # the context is still usable
     torch.cuda.synchronize()
     assert torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("name", ["fpat", "wnorm"])
+def test_tf32_v1_raises_on_a_misaligned_input(cuda_device, name):
+    """A float32 v1 call whose fpat or wnorm starts four bytes off a 16-byte
+    boundary (K = 576, so the wrapper passes it on uncopied) raises before
+    any launch and counts none: the split reads it four floats at a time;
+    the context is still usable after it."""
+    fd, bd, b_full, mm = make_inputs(1, 8, 8, 64, "middle", torch.float32, cuda_device)
+    patches = dict(zip(("fpat", "wnorm", "raw"), v1_patches(fd, bd, b_full)))
+    x = patches[name]
+    off = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    patches[name] = off.view(x.shape).copy_(x)
+    assert patches[name].is_contiguous() and patches[name].data_ptr() % 16 != 0
+    before = (attention_scores_paste.launches, attention_scores_paste.tf32_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_scores_paste(*patches.values(), mm, 8, 8)
+    torch.cuda.synchronize()
+    assert (attention_scores_paste.launches, attention_scores_paste.tf32_launches) == before
+    vals = attention_scores_paste(*{**patches, name: x}.values(), mm, 8, 8)
+    torch.cuda.synchronize()
+    assert torch.isfinite(vals).all()
 
 
 def test_offsets_keep_the_gradient(cuda_device):
@@ -398,16 +430,18 @@ def test_v1_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
 @pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20), (1, 3, 70, 8)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_ablate_kernel_matches_plain(cuda_device, shape, mode, layout, dtype):
-    """bf16 runs the tensor-core route (channels padded to 64 at C = 20 and
-    8; 70 columns in a 128-wide position order), float32 the CUDA cores."""
+    """bf16 runs the bf16 tensor-core route, float32 the 3xTF32 route
+    (channels padded to 64 at C = 20 and 8; 70 columns in a 128-wide
+    position order), each counted on its own counter."""
     b, hd, wd, c = shape
     fd, bd, b_full, mm = make_inputs(b, hd, wd, c, "bottom", dtype, cuda_device)
     b_in = b_full if layout == "natural" else attn_ablate.to_phases(b_full, hd, wd)
-    before = attn_ablate.attention_v2_ablate.tc_launches
-    got = attn_ablate.attention_v2_ablate(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
+    ab = attn_ablate.attention_v2_ablate
+    before = (ab.tc_launches, ab.tf32_launches)
+    got = ab(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
     torch.cuda.synchronize()
     tc = int(dtype == torch.bfloat16)
-    assert attn_ablate.attention_v2_ablate.tc_launches == before + tc
+    assert (ab.tc_launches, ab.tf32_launches) == (before[0] + tc, before[1] + 1 - tc)
     want = attn_ablate.ablate_layout_reference(fd, bd, b_in, mm, hd, wd, 10.0, mode, layout)
     assert got.dtype == dtype and got.shape == b_in.shape
     _, _, probs, _ = attention_v2_reference(fd, bd, b_full, mm, hd, wd, 10.0, True)
@@ -420,18 +454,45 @@ def test_ablate_entry_functions_count_their_launches(cuda_device):
     fd, bd, b_full, mm = make_inputs(1, 8, 8, 4, "top", torch.float32, cuda_device)
     bph = attn_ablate.to_phases(b_full, 8, 8)
     fns = (attn_ablate.run, attn_ablate.run_padded, attn_ablate.run_auto, attn_ablate.run_fold)
-    before = [f.launches for f in fns]
+    before = [f.launches for f in fns] + [attn_ablate.attention_v2_ablate.tf32_launches]
     outs = [f(fd, bd, bph if f is attn_ablate.run_padded else b_full, mm, 8, 8) for f in fns]
     torch.cuda.synchronize()
-    assert [f.launches for f in fns] == [n + 1 for n in before]
+    after = [f.launches for f in fns] + [attn_ablate.attention_v2_ablate.tf32_launches]
+    assert [a - n for a, n in zip(after, before)] == [1, 1, 1, 1, 4]
     outs[1] = attn_ablate.from_phases(outs[1])
-    for y in outs[1:]:  # one arithmetic in both layouts: bit-equal
+    for y in outs[1:]:  # one arithmetic in both layouts and ring depths: bit-equal
         assert torch.equal(y, outs[0])
-    # the float32 forward runs 3xTF32 on the tensor cores, the float32
-    # ablation the CUDA cores: the same function within y's float32 gate
-    torch.testing.assert_close(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8), rtol=0, atol=3e-4)
+    # the float32 ablation runs the float32 forward's 3xTF32 kernels: full
+    # is attention_v2 bit for bit
+    assert torch.equal(outs[0], attention_v2(fd, bd, b_full, mm, 8, 8))
     with pytest.raises(ValueError):  # b_full in the phase layout's place
         attn_ablate.run_padded(fd, bd, b_full, mm, 8, 8)
+
+
+@pytest.mark.parametrize("mode", attn_ablate.MODES)
+@pytest.mark.parametrize("shape", [(2, 32, 32, 64), (1, 6, 10, 20)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_ablate_tf32_entry_functions_are_bit_equal(cuda_device, shape, mode):
+    """The float32 twin of the test below: the four entry functions launch
+    the 3xTF32 route once each and count it; both layouts and both ring
+    depths (run_auto at depth 1) give bit-equal outputs in every mode, and
+    run(mode="full") is the float32 attention_v2 bit for bit."""
+    b, hd, wd, c = shape
+    fd, bd, b_full, mm = make_inputs(b, hd, wd, c, "middle", torch.float32, cuda_device)
+    bph = attn_ablate.to_phases(b_full, hd, wd)
+    fns = (attn_ablate.run, attn_ablate.run_padded, attn_ablate.run_auto, attn_ablate.run_fold)
+    ab = attn_ablate.attention_v2_ablate
+    before = [f.launches for f in fns] + [ab.tf32_launches, ab.tc_launches]
+    outs = [f(fd, bd, bph if f is attn_ablate.run_padded else b_full, mm, hd, wd, mode=mode)
+            for f in fns]
+    torch.cuda.synchronize()
+    after = [f.launches for f in fns] + [ab.tf32_launches, ab.tc_launches]
+    assert [a - n for a, n in zip(after, before)] == [1, 1, 1, 1, 4, 0]
+    outs[1] = attn_ablate.from_phases(outs[1])
+    for name, y in zip(("run_padded", "run_auto", "run_fold"), outs[1:]):
+        assert torch.equal(y, outs[0]), (name, float((y - outs[0]).abs().max()))
+    if mode == "full":
+        assert torch.equal(outs[0], attention_v2(fd, bd, b_full, mm, hd, wd))
 
 
 @pytest.mark.parametrize("mode", attn_ablate.MODES)
@@ -461,14 +522,16 @@ def test_ablate_tc_entry_functions_are_bit_equal(cuda_device, shape, mode):
 
 
 def test_ablate_tc_raises_where_the_route_cannot_go(cuda_device):
-    """A bf16 launch the tensor-core route refuses raises and counts no
-    launch; it does not drop to the CUDA cores, which would take each of
-    these. TMA reads from 16-byte aligned addresses only: b_full two bytes
-    off (C = 64, so the wrapper passes it on uncopied) fails to make its
-    tensor map, in the natural layout and the phase layout alike."""
+    """A launch the tensor-core route refuses raises and counts no launch;
+    there is no other route to drop to. TMA reads from 16-byte aligned
+    addresses only: bf16 b_full two bytes off (C = 64, so the wrapper passes
+    it on uncopied) fails to make its tensor map, in the natural layout and
+    the phase layout alike; the depth-1 ring has the phase layout only, on
+    either route; and a float32 fd four bytes off, which the split would
+    read four floats at a time, raises before any launch."""
     fd, bd, b_full, mm = make_inputs(1, 8, 8, 64, "middle", torch.bfloat16, cuda_device)
     ab = attn_ablate.attention_v2_ablate
-    before = (ab.tc_launches, attn_ablate.run.launches)
+    before = (ab.tc_launches, ab.tf32_launches, attn_ablate.run.launches)
     for layout in attn_ablate.LAYOUTS:
         b_in = b_full if layout == "natural" else attn_ablate.to_phases(b_full, 8, 8)
         off = torch.empty(b_in.numel() + 1, dtype=b_in.dtype, device=b_in.device)[1:]
@@ -476,12 +539,17 @@ def test_ablate_tc_raises_where_the_route_cannot_go(cuda_device):
         assert off.is_contiguous() and off.data_ptr() % 16 != 0
         with pytest.raises(RuntimeError, match="cuTensorMapEncodeTiled"):
             ab(fd, bd, off, mm, 8, 8, 10.0, "full", layout)
-    with pytest.raises(RuntimeError):  # the depth-1 ring has the phase layout only
-        ab(fd, bd, b_full, mm, 8, 8, 10.0, "full", "natural", attn_ablate.RING_SYNC)
-    with pytest.raises(ValueError):  # no ring of depth 2
+    f32 = [t.float() for t in (fd, bd, b_full)]
+    for args in ((fd, bd, b_full), f32):  # the depth-1 ring has the phase layout only
+        with pytest.raises(RuntimeError):
+            ab(*args, mm, 8, 8, 10.0, "full", "natural", attn_ablate.RING_SYNC)
+    with pytest.raises(ValueError):  # no ring of depth 2 in bf16
         ab(fd, bd, b_full, mm, 8, 8, 10.0, "full", "natural", 2)
-    with pytest.raises(ValueError):  # the CUDA cores have no ring
-        ab(fd.float(), bd.float(), b_full.float(), mm, 8, 8, 10.0, "full", "natural",
-           attn_ablate.RING_SYNC)
+    with pytest.raises(ValueError):  # nor of depth 4 in float32
+        ab(*f32, mm, 8, 8, 10.0, "full", "natural", 4)
+    off = torch.empty(f32[0].numel() + 1, device=fd.device)[1:].view(f32[0].shape).copy_(f32[0])
+    assert off.data_ptr() % 16 != 0
+    with pytest.raises(ValueError, match="16-byte"):
+        ab(off, *f32[1:], mm, 8, 8, 10.0, "full", "natural")
     torch.cuda.synchronize()
-    assert (ab.tc_launches, attn_ablate.run.launches) == before
+    assert (ab.tc_launches, ab.tf32_launches, attn_ablate.run.launches) == before
