@@ -66,7 +66,25 @@ JSON line:
                 step, finite losses, every parameter moved; one more step
                 under torch.profiler: its device time and the attention
                 route's share of it
- 12. ablate     the forward's stage ablation, once in bf16 and once in f32:
+ 12. cli        the port's three command-line entry points on a cohort of 8
+                patients of 5 vertebrae (256 x 256 x 64) written as NIfTI with
+                the port's own writer, with the counts set to 0 just before
+                each CLI and read just after: the 3D synthesis CLI on every
+                patient (shipped weights through --load_npz, bf16,
+                --slice_batch 64) with every output finite, of its input's
+                shape and affine and bit-equal to synthesize_volumes called
+                directly, tensor-core launches equal to its dispatches; the
+                train CLI on the shipped recipe's flags (batch 32, bf16) for 4
+                steps, evaluated every epoch, a checkpoint at step 2 (iter_64),
+                one forward and one backward launch per step, finite losses,
+                eval SSIM/PSNR/Dice/IoU in metrics.jsonl, then resumed from
+                that checkpoint to step 4; the test CLI's gallery of 4 images
+                on the run's latest checkpoint, one forward launch per image,
+                index.html and its 28 PNGs (offset_flow among them) decoded by
+                the port's PNG reader. Its line has the wall seconds of each
+                CLI, per patient and the NIfTI IO share, the train CLI's ms per
+                step with data loading and the loader's examples/s
+ 13. ablate     the forward's stage ablation, once in bf16 and once in f32:
                 every mode in both layouts, kernel vs plain on soft
                 attention at (64, 32, 32, 64) and (1, 6, 10, 20) in bf16 and
                 at (2, 32, 32, 64), (1, 6, 10, 20) and (64, 32, 32, 64) in
@@ -85,7 +103,7 @@ JSON line:
                 run(mode="full"); a profiled call of every mode and of v1
                 holds the route's own GEMMs and no CUDA-core, library or
                 other-route GEMM
- 13. timing     each kernel, its plain version and its bound, bf16, CUDA
+ 14. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
                 (kernel ms from the ablation's own timing); the forward's,
@@ -114,7 +132,9 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -750,6 +770,233 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
     return launches
 
 
+# the cli phase's cohort: eight patients of five vertebrae (256 x 256 x 64,
+# the straightening pipeline's output), one fractured vertebra each; the
+# train split holds patients 0-3, the test split patients 4-7
+CLI_PATIENTS, CLI_VERTS = 8, (18, 19, 20, 21, 22)
+
+
+def write_cli_cohort(root):
+    """The cohort as NIfTI (CT uint8, labels int16, CAM float32 under CAM/
+    with the _0 suffix) and its vertebra_data.json. A patient's vertebrae
+    share one volume, written once and copied."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from healthivert_tpu_torch.utils import nifti
+
+    for d in ("CT", "label", "CAM"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    split = {"train": {}, "test": {}}
+
+    def patient(p):
+        frac = CLI_VERTS[1 + p % 3]
+        ct, labels, cam = make_spine_volume(np.random.default_rng(100 + p), fractured={frac: 0.6})
+        first = None
+        for v in CLI_VERTS:
+            names = [root / "CT" / f"p{p}_{v}.nii.gz", root / "label" / f"p{p}_{v}.nii.gz",
+                     root / "CAM" / f"p{p}_{v}_0.nii.gz"]
+            if first is None:
+                for arr, path in zip((ct.astype(np.uint8), labels.astype(np.int16),
+                                      cam.astype(np.float32)), names):
+                    nifti.save(nifti.Nifti1Image(arr), path)
+                first = names
+            else:
+                for a, b in zip(first, names):
+                    shutil.copyfile(a, b)
+        return {f"p{p}_{v}": (2 + p % 2 if v == frac else 0) for v in CLI_VERTS}
+
+    with ThreadPoolExecutor(8) as pool:
+        for p, grades in enumerate(pool.map(patient, range(CLI_PATIENTS))):
+            split["train" if p < CLI_PATIENTS // 2 else "test"].update(grades)
+    (root / "vertebra_data.json").write_text(json.dumps(split))
+    return split
+
+
+def _counting_steps(train_loop, record):
+    """Wrap the training loop's train_step so that each step records its
+    launches on the bf16 route and the host clock, after a synchronise,
+    before and after it."""
+    step_fn = train_loop.train_step
+
+    def wrapped(state, batch, lr, cfg):
+        f0, b0 = attention_v2.tc_launches, attention_v2_bwd.tc_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(state, batch, lr, cfg)
+        torch.cuda.synchronize()
+        record.append((attention_v2.tc_launches - f0, attention_v2_bwd.tc_launches - b0,
+                       time.perf_counter(), int(batch["full"].shape[0]), t0))
+        return out
+
+    return wrapped
+
+
+def phase_cli():
+    """The port's three CLIs on a straightened cohort written as NIfTI: 3D
+    synthesis on every patient (shipped weights through --load_npz, bf16,
+    --slice_batch 64) bit-equal to synthesize_volumes called directly; the
+    train CLI on the shipped recipe's flags (batch 32, bf16) for 4 steps with
+    a checkpoint at step 2, evaluated every epoch, then resumed from that
+    checkpoint for 2 more steps; the test CLI's gallery of 4 images on the
+    run's latest checkpoint. Each CLI runs with the counts set to 0 just
+    before it and read just after."""
+    from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
+    from healthivert_tpu_torch.cli import test as test_cli
+    from healthivert_tpu_torch.cli import train as train_cli
+    from healthivert_tpu_torch.data.aligned import AlignedDataset
+    from healthivert_tpu_torch.engine import train_loop
+    from healthivert_tpu_torch.engine.visualizer import read_png
+    from healthivert_tpu_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    data = tmp / "cohort"
+    t0 = time.perf_counter()
+    split = write_cli_cohort(data)
+    write_s = time.perf_counter() - t0
+    quiet = contextlib.redirect_stdout(open(tmp / "cli.log", "a"))
+
+    # 3D synthesis CLI
+    for fn in (attention_v2, attention_v2_bwd):
+        fn.launches = fn.tc_launches = fn.tf32_launches = 0
+    infer3d._forward.dispatches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet:
+        stats = e3_cli.main(["--dataroot", str(data), "--name", "e3", "--checkpoints_dir",
+                             str(tmp / "ck"), "--results_dir", str(tmp / "out3d"),
+                             "--load_npz", str(PRETRAINED_NPZ), "--slice_batch", "64",
+                             "--cam_dir", str(data / "CAM")])
+    torch.cuda.synchronize()
+    e3_wall = time.perf_counter() - t0
+    launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+    check(launches > 0 and launches == dispatches == attention_v2.launches,
+          f"3D CLI: tensor-core launches {launches}, all {attention_v2.launches}, "
+          f"dispatches {dispatches}")
+    check(len(stats["patients"]) == CLI_PATIENTS, f"3D CLI: {len(stats['patients'])} patients")
+    cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="bfloat16")
+    gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
+    for p in range(CLI_PATIENTS):
+        names = [f"p{p}_{v}.nii.gz" for v in CLI_VERTS]
+        imgs = [nifti.load(data / "CT" / n) for n in names]
+        vols = [(img.get_fdata(), nifti.load(data / "label" / n).get_fdata(), v,
+                 nifti.load(data / "CAM" / n.replace(".nii", "_0.nii")).get_fdata()
+                 .astype(np.float32)) for img, n, v in zip(imgs, names, CLI_VERTS)]
+        direct = infer3d.synthesize_volumes(gen, cfg, vols, batch_size=64, use_bf16=True,
+                                            device="cuda")
+        for n, img, (ct_d, lb_d) in zip(names, imgs, direct):
+            for sub, want in (("CT_fake", ct_d), ("label_fake", lb_d)):
+                out = nifti.load(tmp / "out3d" / sub / n)
+                check(out.data.shape == img.data.shape and np.array_equal(out.affine, img.affine),
+                      f"3D CLI {sub}/{n}: shape or affine")
+                check(bool(np.isfinite(out.data).all()), f"3D CLI {sub}/{n}: not finite")
+                check(np.array_equal(out.data, want.astype(np.float32)),
+                      f"3D CLI {sub}/{n}: differs from synthesize_volumes")
+    del gen
+
+    # train CLI on the recipe's flags, 4 steps, a checkpoint at step 2
+    recipe = read_recipe()
+    flags = ["--dataroot", str(data), "--cam_dir", str(data / "CAM"), "--name", "smoke",
+             "--checkpoints_dir", str(tmp / "ck"), "--batch_size", str(recipe.batch_size),
+             "--compute_dtype", recipe.compute_dtype, "--seed", str(recipe.seed),
+             "--direction", recipe.direction, "--print_freq", str(recipe.batch_size),
+             "--display_freq", str(recipe.display_freq), "--save_epoch_freq", "100",
+             "--save_latest_freq", str(2 * recipe.batch_size), "--save_by_iter",
+             "--eval_freq", "1", "--max_steps", "4"]
+    record = []
+    orig = train_loop.train_step
+    train_loop.train_step = _counting_steps(train_loop, record)
+    try:
+        for fn in (attention_v2, attention_v2_bwd):
+            fn.launches = fn.tc_launches = fn.tf32_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with quiet:
+            state, tcfg = train_cli.main(flags)
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        fwd_all, bwd_all = attention_v2.tc_launches, attention_v2_bwd.tc_launches
+        first = list(record)
+        record.clear()
+        with quiet:
+            resumed, _ = train_cli.main(flags + ["--continue_train", "--load_iter",
+                                                 str(2 * recipe.batch_size)])
+    finally:
+        train_loop.train_step = orig
+    run_dir = tmp / "ck" / "smoke"
+    check(tcfg.compute_dtype == "bfloat16" and state.step == 4, f"train CLI: {state.step} steps")
+    check([r[:2] for r in first] == [(1, 1)] * 4 and [r[3] for r in first] == [32] * 4,
+          f"train CLI: launches and batch per step {[(r[0], r[1], r[3]) for r in first]}")
+    check(bwd_all == 4 and fwd_all >= 4, f"train CLI: launches {fwd_all}, {bwd_all}")
+    check(resumed.step == 4 and [r[:2] for r in record] == [(1, 1)] * 2,
+          f"resume: step {resumed.step}, steps run {len(record)}")
+    for tag in ("iter_64", "iter_128", "latest", "4"):
+        check((run_dir / f"{tag}.pt").is_file(), f"train CLI: checkpoint {tag}.pt missing")
+    recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
+    evals = [r for r in recs if r["tag"] == "eval"]
+    losses = [r for r in recs if r["tag"] == "train"]
+    check(len(evals) == 6 and all(np.isfinite([r[k] for k in ("ssim", "psnr", "dice", "iou")]).all()
+                                  for r in evals), f"train CLI: eval records {evals}")
+    check(len(losses) == 6 and all(np.isfinite([v for k, v in r.items() if k not in
+                                                ("tag", "step", "time")]).all() for r in losses),
+          "train CLI: non-finite or missing losses")
+    step_ms = [(r[2] - r[4]) * 1e3 for r in first]
+    # between one step's end and the next one's start: the next epoch's
+    # batch (its loader), the epoch's evaluation and checkpoints
+    gap_ms = [(b[4] - a[2]) * 1e3 for a, b in zip(first, first[1:])]
+    opt = types.SimpleNamespace(batch_size=recipe.batch_size, seed=recipe.seed,
+                                dataroot=str(data), phase="train", vert_class="normal",
+                                num_threads=recipe.num_threads, serial_batches=False,
+                                cam_dir=str(data / "CAM"), data_cache_gb=4.0)
+    loader = AlignedDataset(opt)
+    rates = []
+    for _ in range(2):  # cold, then from the volume cache
+        t0 = time.perf_counter()
+        n = sum(len(b["full"]) for b in loader)
+        rates.append(n / (time.perf_counter() - t0))
+
+    # test CLI on the run's latest checkpoint
+    for fn in (attention_v2, attention_v2_bwd):
+        fn.launches = fn.tc_launches = fn.tf32_launches = 0
+    t0 = time.perf_counter()
+    with quiet:
+        test_cli.main(["--dataroot", str(data), "--cam_dir", str(data / "CAM"), "--name", "smoke",
+                       "--checkpoints_dir", str(tmp / "ck"), "--results_dir", str(tmp / "res"),
+                       "--num_test", "4"])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - t0
+    check(attention_v2.tc_launches == attention_v2.launches == 4,
+          f"test CLI: {attention_v2.tc_launches} tensor-core launches for 4 images")
+    web = tmp / "res" / "smoke" / "test_latest"
+    html = (web / "index.html").read_text()
+    pngs = sorted((web / "images").glob("*.png"))
+    check(len(pngs) == 4 * 7 and all(p.name in html for p in pngs),
+          f"test CLI: {len(pngs)} PNGs")
+    check(sum("offset_flow" in p.name for p in pngs) == 4, "test CLI: offset_flow missing")
+    for p in pngs:
+        img = read_png(p)
+        check(img.shape[:2] == (256, 256), f"test CLI: {p.name} {img.shape}")
+    emit("cli", cohort=dict(patients=CLI_PATIENTS, vertebrae=len(CLI_VERTS) * CLI_PATIENTS,
+                            volume=[256, 256, 64], train=len(split["train"]),
+                            test=len(split["test"]), write_s=write_s),
+         eval_3d=dict(wall_s=e3_wall, patient_s=stats["patients"], total_s=stats["total_s"],
+                      io_read_s=stats["io_read_s"], io_write_thread_s=stats["io_write_s"],
+                      io_read_share=stats["io_read_s"] / stats["total_s"],
+                      dispatches=dispatches, launches=launches),
+         train=dict(wall_s=train_wall, steps=4, batch=recipe.batch_size,
+                    step_ms=step_ms, between_steps_ms=gap_ms,
+                    ms_per_step_with_data=(first[-1][2] - first[0][4]) * 1e3 / len(first),
+                    fwd_launches=fwd_all, bwd_launches=bwd_all,
+                    loader_examples_per_s_cold_cached=rates,
+                    eval=[{k: r[k] for k in ("step", "ssim", "psnr", "dice", "iou", "diff_h")}
+                          for r in evals[:4]],
+                    resumed_at=2, resumed_to=resumed.step),
+         test=dict(wall_s=test_wall, images=4, pngs=len(pngs),
+                   launches=attention_v2.tc_launches),
+         phase_s=time.perf_counter() - t_phase)
+
+
 # the names of the float32 route's kernels (the attention's share of a
 # float32 train step)
 TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "fuse_softmax_tc",
@@ -766,6 +1013,7 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
     opt.compute_dtype = dtype
+    opt.checkpoints_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")  # logs, checkpoints
     counter = ROUTE_COUNTER[getattr(torch, dtype)]
     per_step, marks, losses_seen = [], [], []
     prof = kernel_profiler()
@@ -1192,6 +1440,7 @@ def main():
     launches = phase_synth3d(gen, cfg)
     bwd_launches = phase_train("bfloat16", timed=20)
     f32_launches = phase_train("float32", timed=10)
+    phase_cli()
     phase_profile_fwd(gen, cfg)
     del gen
     ablation, ablate_launches = phase_ablate()

@@ -1,5 +1,5 @@
-"""HealthiVert on PyTorch and CUDA: the serving path of `healthivert_tpu`,
-ported to an NVIDIA H100.
+"""HealthiVert on PyTorch and CUDA: `healthivert_tpu`'s serving and training
+paths and their command lines, ported to an NVIDIA H100.
 
 The JAX package `healthivert_tpu` stays the reference; this package keeps
 its layout so that each module has a counterpart there:
@@ -7,10 +7,16 @@ its layout so that each module has a counterpart there:
 ops      nearest resize, Sobel edges, SHRM paste-back, contextual attention,
          and the wrappers of the hand-written CUDA attention kernels
          (forward, backward, v1 on patch tensors)
-models   spectral-norm conv blocks, the two-stage generator, generator_forward
-data     host-side (numpy) slice sampling and synthetic spine volumes
-engine   generator loading and the three-pass 3D synthesis
-utils    flax-tree to state-dict conversion, device selection
+models   spectral-norm conv blocks, the two-stage generator, the
+         discriminators, generator_forward and train_step
+data     host-side (numpy) slice sampling, the straightened dataset,
+         synthetic spine volumes, device prefetch
+engine   checkpoints, the three-pass 3D synthesis, the training loop,
+         evaluation and the visualizer (logs, galleries, PNGs)
+config   the command-line options
+cli      the entry points: eval_3d_sagittal_twostage, train, test
+         (python -m healthivert_tpu_torch.cli.<name>)
+utils    NIfTI IO, flax-tree and .pth conversion, device selection
 experiments  the attention forward's stage ablation (run on the card)
 
 Public functions take and return NHWC tensors, as the JAX package does.

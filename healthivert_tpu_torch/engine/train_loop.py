@@ -1,22 +1,30 @@
-"""The training driver: epoch loop, learning-rate schedule, printed losses.
+"""The training loop: epoch loop, LR schedule, checkpoints, periodic eval.
 
-Counterpart of healthivert_tpu/engine/train_loop.py:92-310 on one device.
-Not ported yet (queued in ROADMAP.md): the device mesh and multi-process
-runs, periodic evaluation, web visuals, the profiler window, checkpoint
-save and resume, and device prefetch of batches.
+Counterpart of healthivert_tpu/engine/train_loop.py:39-310 on one device
+(structure parity with the reference train.py:162-236: print/save cadences,
+eval every `eval_freq` epochs, 'latest' + epoch checkpoints). Batches are
+built ahead on a background thread and copied to the device (depth 2); a
+trailing partial batch is padded back to the batch size by cyclic
+repetition, as the JAX loop does. The device mesh and multi-process runs
+are not ported (ROADMAP.md section 1 item 7).
 """
 
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
 import torch
 
 from ..data import create_dataset
-from ..models.pix2pix import LRSchedule, Pix2PixConfig, init_state, train_step
+from ..data.prefetch import prefetch_to_device, to_device
+from ..models.pix2pix import LRSchedule, Pix2PixConfig, generator_forward, init_state, train_step
 from ..utils.device import resolve_device
+from . import checkpoint as ckpt
+from .evaluate import evaluate_model
+from .visualizer import HTMLGallery, Visualizer, save_images
 
 
 def config_from_opt(opt) -> Pix2PixConfig:
@@ -41,14 +49,209 @@ def config_from_opt(opt) -> Pix2PixConfig:
     )
 
 
-def _print_networks(state):
+def pad_batch(batch: dict, size: int) -> dict:
+    """Pad a batch dict's leading dim up to `size` by cyclic repetition
+    (healthivert_tpu/parallel/mesh.py:45-57): one step per epoch then
+    weights the repeated examples double, as in the JAX loop."""
+    n = next(iter(batch.values())).shape[0]
+    if n == size:
+        return batch
+    reps = -(-size // n)
+    return {k: np.concatenate([np.asarray(v)] * reps)[:size] for k, v in batch.items()}
+
+
+def _save_web_visuals(state, batch, cfg, run_dir, epoch, iters, visualizer=None):
+    """Training-time HTML gallery (reference visdom/HTML panels,
+    train.py:200-203): context / fake / real / seg rows under {run}/web."""
+    with torch.no_grad():
+        f = generator_forward(state.gen, batch, cfg)
+    host = lambda t: t[0].float().cpu().numpy()
+    gallery = HTMLGallery(os.path.join(run_dir, "web"), "training progress", history=True)
+    visuals = {
+        "real_A": host(batch["context"]),
+        "fake_B": host(f["fake_b"]),
+        "real_B": host(batch["full"]),
+        "fake_B_mask": host(f["fine_seg_bin"]),
+        "coarse_seg": host(f["coarse_seg_bin"]),
+        "CAM": host(batch["cam"]),
+    }
+    save_images(gallery, visuals, f"epoch{epoch:03d}_{iters:07d}",
+                header=f"epoch [{epoch}] iter {iters}")
+    gallery.save()
+    if visualizer is not None:
+        visualizer.log_images(visuals, iters)
+
+
+def _print_networks(state, verbose=False):
     """Parameter-count banner, in the reference's print_networks format."""
     print("---------- Networks initialized -------------")
     for name, net in (("G", state.gen), ("D_1", state.d1), ("D_2", state.d2),
                       ("D_3", state.d3)):
+        if verbose:
+            print(net)
         n = sum(p.numel() for p in net.parameters())
         print("[Network %s] Total number of parameters : %.3f M" % (name, n / 1e6))
     print("-----------------------------------------------")
+
+
+class _Profiler:
+    """The --profile_steps window: a torch.profiler trace of the steps in
+    [START, STOP), written to {run_dir}/profile as a Chrome trace."""
+
+    def __init__(self, run_dir):
+        self.out_dir = os.path.join(run_dir, "profile")
+        self.prof = None
+
+    def start(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            acts.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def stop(self, why=""):
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
+        self.prof = None
+        print(f"profiler trace{why} written to {self.out_dir}")
+
+    @property
+    def on(self):
+        return self.prof is not None
+
+
+def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device="cuda",
+                 on_step=None):
+    """Train on one device from the options of train.py; returns (state, cfg).
+
+    The networks start from the seeded initialisation, the generator from
+    opt.load_npz (an exported ``.npz``) when set; then --load_pth overlays
+    the reference's G (and sibling D) files, and --continue_train restores
+    {run_dir}/{tag}.pt. Every opt.print_freq samples the losses are logged
+    (loss_log.txt, metrics.jsonl) and checked: a non-finite loss raises
+    FloatingPointError. Checkpoints every save_latest_freq samples, at every
+    save_epoch_freq-th epoch and at the last step; evaluation on opt_test's
+    split every eval_freq epochs. profile_steps=(START, STOP) traces those
+    steps. on_step(step, losses), when given, is called after every step
+    with the losses as device tensors."""
+    if getattr(opt, "compute_dtype", "float32") == "int8":
+        raise SystemExit("--compute_dtype int8 is inference-only; train in "
+                         "bfloat16/float32")
+    cfg = config_from_opt(opt)
+    dev = resolve_device(device)
+    dataset = create_dataset(opt)
+    print(f"The number of training images = {len(dataset)}")
+    eval_dataset = None
+    if opt_test is not None:
+        try:
+            eval_dataset = create_dataset(opt_test)
+        except FileNotFoundError as e:
+            print(f"eval split unavailable ({e}); training without periodic eval")
+
+    run_dir = os.path.join(opt.checkpoints_dir, opt.name)
+    os.makedirs(run_dir, exist_ok=True)
+    visualizer = Visualizer(opt)
+    state = init_state(cfg, seed=opt.seed, device=dev,
+                       gen_npz=getattr(opt, "load_npz", None))
+    _print_networks(state, verbose=getattr(opt, "verbose", False))
+    if getattr(opt, "load_pth", None):
+        # G + sibling D_1..3 files when present (load_networks parity)
+        ckpt.restore_full_pth(state, opt.load_pth, n_layers_d=getattr(opt, "n_layers_D", 3))
+    if getattr(opt, "continue_train", False):
+        resume_tag = ckpt.resolve_tag(opt)  # --load_iter N > 0 picks iter_N
+        if ckpt.latest_exists(run_dir, resume_tag):
+            ckpt.restore_checkpoint(state, run_dir, resume_tag)
+            print(f"resumed from {ckpt.checkpoint_path(run_dir, resume_tag)} at step {state.step}")
+        elif ckpt.orbax_exists(run_dir, resume_tag):
+            raise ckpt.orbax_error(run_dir, resume_tag)
+
+    profiler = _Profiler(run_dir)
+    if profile_steps and state.step >= profile_steps[1]:
+        print(f"warning: --profile_steps window {profile_steps} is entirely before "
+              f"the resume step {state.step}; no trace will be written")
+        profile_steps = None
+    schedule = LRSchedule(opt)
+    last_metric = None
+    total_iters = 0
+    losses = None
+    done = False
+
+    def place(b):
+        b = pad_batch(b, opt.batch_size)
+        return to_device(b, dev)
+
+    for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
+        epoch_start = time.time()
+        lr = opt.lr * schedule.scale(epoch, last_metric)
+        print(f"learning rate {lr:.7f} for epoch {epoch}")
+        epoch_iter = 0
+        iter_data_time = time.time()
+        for batch in prefetch_to_device(dataset, place, depth=2):
+            iter_start = time.time()
+            t_data = iter_start - iter_data_time
+            total_iters += opt.batch_size
+            epoch_iter += opt.batch_size
+            # >= so that a --continue_train resume landing inside [START,
+            # STOP) still gives a (shortened) trace
+            if profile_steps and not profiler.on and state.step >= profile_steps[0]:
+                profiler.start()
+            state, losses = train_step(state, batch, lr, cfg)
+            if on_step is not None:
+                on_step(state.step, losses)
+            if profiler.on and state.step >= profile_steps[1]:
+                profiler.stop()
+                profile_steps = None  # one-shot window
+
+            if total_iters % opt.print_freq < opt.batch_size:
+                try:
+                    host = _check_finite(losses, state.step)
+                except FloatingPointError:
+                    if profiler.on:  # the diverging steps' trace is the one wanted
+                        profiler.stop(" (divergence abort)")
+                    raise
+                t_comp = (time.time() - iter_start) / opt.batch_size
+                visualizer.print_current_losses(epoch, epoch_iter, host, t_comp, t_data)
+                visualizer.log_scalars("train", host, total_iters)
+
+            if getattr(opt, "display_freq", 0) and total_iters % opt.display_freq < opt.batch_size:
+                _save_web_visuals(state, batch, cfg, run_dir, epoch, total_iters, visualizer)
+
+            if total_iters % opt.save_latest_freq < opt.batch_size:
+                tag = f"iter_{total_iters}" if opt.save_by_iter else "latest"
+                ckpt.save_checkpoint(state, run_dir, tag)
+            iter_data_time = time.time()
+            if max_steps is not None and state.step >= max_steps:
+                done = True
+                break
+
+        if epoch % opt.save_epoch_freq == 0 or done:
+            ckpt.save_checkpoint(state, run_dir, "latest")
+            ckpt.save_checkpoint(state, run_dir, epoch)
+
+        if eval_dataset is not None and epoch % getattr(opt, "eval_freq", 15) == 0:
+            avg = evaluate_model(state.gen, eval_dataset, cfg,
+                                 out_dir=os.path.join(run_dir, "eval_imgs"), epoch=epoch)
+            if avg:
+                last_metric = -avg["ssim"]  # plateau policy input (minimized)
+                visualizer.log_scalars("eval", avg, epoch)
+                print(
+                    f"epoch[{epoch}] SSIM: {avg['ssim']:.4f} PSNR: {avg['psnr']:.2f} "
+                    f"Dice: {avg['dice']:.4f} IoU: {avg['iou']:.4f} DiffH: {avg['diff_h']:.2f}"
+                )
+        print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
+              f"Time Taken: {int(time.time() - epoch_start)} sec")
+        if done:
+            break
+    if profiler.on:
+        # STOP landed past the last step: flush the trace instead of losing it
+        profiler.stop(" (truncated at run end)")
+    if losses is not None:
+        host = _check_finite(losses, state.step)
+        print("final losses: " + " ".join(f"{k}: {v:.3f}" for k, v in host.items()))
+    return state, cfg
 
 
 def _check_finite(losses, step):
@@ -58,63 +261,3 @@ def _check_finite(losses, step):
         # stop rather than burn epochs on a diverged run
         raise FloatingPointError(f"non-finite losses at step {step}: {bad}")
     return host
-
-
-def run_training(opt, max_steps=None, device="cuda", on_step=None):
-    """Train on one device from the options of train.py; returns (state, cfg).
-
-    The generator starts from opt.load_npz (an exported ``.npz``) when set,
-    else from the port's own initialisation; the discriminators from theirs;
-    all seeded by opt.seed. Losses are printed, and checked to be finite,
-    every opt.print_freq samples and after the last step: a non-finite loss
-    raises FloatingPointError. max_steps ends the run after that many steps.
-    on_step(step, losses), when given, is called after every step with the
-    losses as device tensors."""
-    if getattr(opt, "compute_dtype", "float32") == "int8":
-        raise SystemExit("--compute_dtype int8 is inference-only; train in "
-                         "bfloat16/float32")
-    cfg = config_from_opt(opt)
-    dev = resolve_device(device)
-    dataset = create_dataset(opt)
-    print(f"The number of training images = {len(dataset)}")
-    state = init_state(cfg, seed=opt.seed, device=dev,
-                       gen_npz=getattr(opt, "load_npz", None))
-    _print_networks(state)
-    schedule = LRSchedule(opt)
-    total_iters = 0
-    losses = None
-    done = False
-    for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
-        epoch_start = time.time()
-        lr = opt.lr * schedule.scale(epoch)
-        print(f"learning rate {lr:.7f} for epoch {epoch}")
-        epoch_iter = 0
-        iter_data_time = time.time()
-        for batch in dataset:
-            iter_start = time.time()
-            t_data = iter_start - iter_data_time
-            batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
-                     for k, v in batch.items()}
-            total_iters += opt.batch_size
-            epoch_iter += opt.batch_size
-            state, losses = train_step(state, batch, lr, cfg)
-            if on_step is not None:
-                on_step(state.step, losses)
-            if total_iters % opt.print_freq < opt.batch_size:
-                host = _check_finite(losses, state.step)
-                t_comp = (time.time() - iter_start) / opt.batch_size
-                msg = " ".join(f"{k}: {v:.3f}" for k, v in host.items())
-                print(f"(epoch: {epoch}, iters: {epoch_iter}, time: {t_comp:.3f}, "
-                      f"data: {t_data:.3f}) {msg}")
-            iter_data_time = time.time()
-            if max_steps is not None and state.step >= max_steps:
-                done = True
-                break
-        print(f"End of epoch {epoch} / {opt.n_epochs + opt.n_epochs_decay} \t "
-              f"Time Taken: {int(time.time() - epoch_start)} sec")
-        if done:
-            break
-    if losses is not None:
-        host = _check_finite(losses, state.step)
-        print("final losses: " + " ".join(f"{k}: {v:.3f}" for k, v in host.items()))
-    return state, cfg

@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+import tempfile
 import time
 import types
 from pathlib import Path
@@ -66,6 +67,7 @@ def main(argv=None):
                     help="compute dtype in place of the recipe's")
     args = ap.parse_args(argv)
     opt = read_recipe()
+    opt.checkpoints_dir = tempfile.mkdtemp(prefix="train_timing_")  # logs, checkpoints
     if args.dtype is not None:
         opt.compute_dtype = args.dtype
     marks = []

@@ -372,3 +372,16 @@ class LRSchedule:
                     self._plateau_bad = 0
             return self._plateau_lr / float(getattr(self.opt, "lr", 2e-4))
         raise NotImplementedError(f"learning rate policy [{self.policy}]")
+
+
+def option_setter(parser, is_train):
+    """pix2pix's flag defaults (healthivert_tpu/models/pix2pix.py:686-694,
+    reference pix2pix_model.py:65-72): batchnorm discriminators, the
+    unet_256 netG name (cosmetic: G is the inpainting generator), the
+    aligned dataset; and, when training, no image pool, the vanilla GAN
+    loss and --lambda_L1."""
+    parser.set_defaults(norm="batch", netG="unet_256", dataset_mode="aligned")
+    if is_train:
+        parser.set_defaults(pool_size=0, gan_mode="vanilla")
+        parser.add_argument("--lambda_L1", type=float, default=200.0)
+    return parser

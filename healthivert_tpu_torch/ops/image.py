@@ -1,8 +1,10 @@
-"""Image ops: nearest resize, Sobel edge magnitude and the soft Dice of the
-training losses.
+"""Image ops: nearest resize, Sobel edge magnitude, the soft Dice of the
+training losses, and the evaluation metrics (hard Dice and IoU, PSNR, SSIM).
 
 Counterpart of healthivert_tpu/ops/image.py (`resize_nearest` :158,
-`sobel_edges` :33, `dice_coeff` :52). Tensors are NHWC, as there.
+`sobel_edges` :33, `dice_coeff` :52, the metrics :67-156). Tensors are
+NHWC, as there; the metrics take (H, W) images, or (N, H, W) stacks with
+one data range per image.
 """
 
 from __future__ import annotations
@@ -61,3 +63,75 @@ def dice_coeff(pred: torch.Tensor, gt: torch.Tensor, eps: float = 1e-5) -> torch
     g = gt.reshape(n, -1)
     tp = torch.sum(g * p, dim=1)
     return torch.mean((2.0 * tp + eps) / (p.sum(dim=1) + g.sum(dim=1) + eps))
+
+
+def dice_score(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Hard Dice over flattened binary masks (train.py:37-41)."""
+    inter = torch.sum(pred * target)
+    return (2.0 * inter + eps) / (torch.sum(pred) + torch.sum(target) + eps)
+
+
+def iou_score(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Hard IoU over flattened binary masks (train.py:43-48)."""
+    inter = torch.sum(pred * target)
+    union = torch.sum(pred) + torch.sum(target) - inter
+    return (inter + eps) / (union + eps)
+
+
+def psnr(a: torch.Tensor, b: torch.Tensor, data_range=1.0) -> torch.Tensor:
+    """Peak SNR, matching skimage.metrics.peak_signal_noise_ratio; over the
+    last two axes, so (N, H, W) stacks give (N,) with data_range (N,)."""
+    mse = torch.mean((a.float() - b.float()) ** 2, dim=(-2, -1))
+    dr = torch.as_tensor(data_range, dtype=torch.float32, device=mse.device)
+    return 10.0 * torch.log10((dr * dr) / torch.clamp(mse, min=1e-12))
+
+
+def _uniform_filter(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Mean filter with a size x size window, VALID, over the last two axes:
+    separable shift-and-add, the JAX package's order of float32 adds."""
+    h, w = x.shape[-2:]
+    y = sum(x[..., d : h - size + 1 + d, :] for d in range(size))
+    y = sum(y[..., :, d : w - size + 1 + d] for d in range(size))
+    return y / (size * size)
+
+
+def ssim(a: torch.Tensor, b: torch.Tensor, data_range=1.0, win_size: int = 7) -> torch.Tensor:
+    """Structural similarity of 2D images over the last two axes.
+
+    Matches skimage.metrics.structural_similarity defaults: uniform 7x7
+    window, K1=0.01, K2=0.03, sample covariance normalization (N/(N-1)),
+    mean over the valid (cropped) region. (N, H, W) stacks give (N,) with
+    data_range (N,)."""
+    a = a.float()
+    b = b.float()
+    k1, k2 = 0.01, 0.03
+    nw = win_size * win_size
+    cov_norm = nw / (nw - 1.0)
+
+    ux = _uniform_filter(a, win_size)
+    uy = _uniform_filter(b, win_size)
+    uxx = _uniform_filter(a * a, win_size)
+    uyy = _uniform_filter(b * b, win_size)
+    uxy = _uniform_filter(a * b, win_size)
+    vx = cov_norm * (uxx - ux * ux)
+    vy = cov_norm * (uyy - uy * uy)
+    vxy = cov_norm * (uxy - ux * uy)
+
+    dr = torch.as_tensor(data_range, dtype=torch.float32, device=a.device)
+    dr = dr.reshape(dr.shape + (1, 1))
+    c1 = (k1 * dr) ** 2
+    c2 = (k2 * dr) ** 2
+    num = (2.0 * ux * uy + c1) * (2.0 * vxy + c2)
+    den = (ux * ux + uy * uy + c1) * (vx + vy + c2)
+    return torch.mean(num / den, dim=(-2, -1))
+
+
+def psnr_ssim_batch(a: torch.Tensor, b: torch.Tensor, data_range: torch.Tensor,
+                    win_size: int = 7, with_ssim: bool = True) -> tuple:
+    """Per-slice PSNR and SSIM over a stack of 2D images: a, b (N, H, W),
+    data_range (N,). Returns ((N,) psnr, (N,) ssim), the SSIM half None when
+    with_ssim=False (images smaller than the window)."""
+    p = psnr(a, b, data_range)
+    if not with_ssim:
+        return p, None
+    return p, ssim(a, b, data_range, win_size=win_size)

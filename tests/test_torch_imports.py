@@ -1,6 +1,7 @@
 """Guards: the port and chip_smoke.py import nothing of JAX or of the JAX
 package (nor the repository's root `experiments` and `bench` modules, which
-are JAX code), and importing the port leaves JAX unloaded."""
+are JAX code), nor PIL, which the machine with the card lacks; and
+importing the port leaves them unloaded."""
 
 import ast
 import os
@@ -12,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "healthivert_tpu_torch"
-BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "healthivert_tpu", "experiments", "bench"}
+BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "healthivert_tpu", "experiments", "bench",
+          "PIL"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -38,7 +40,9 @@ def test_source_imports_nothing_of_jax(path):
 def test_guard_sees_the_whole_package():
     names = {p.relative_to(PORT).as_posix() for p in SOURCES if PORT in p.parents}
     assert {"ops/attention_cuda.py", "engine/infer3d.py", "models/generator.py",
-            "utils/weights.py", "data/sampler.py", "experiments/attn_ablate.py"} <= names
+            "utils/weights.py", "data/sampler.py", "experiments/attn_ablate.py",
+            "cli/train.py", "cli/test.py", "cli/eval_3d_sagittal_twostage.py",
+            "config/options.py", "engine/visualizer.py", "utils/nifti.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

@@ -41,7 +41,7 @@ import torch
 from healthivert_tpu.data.synthetic import SyntheticDataset
 from healthivert_tpu.models import pix2pix as jpix
 from healthivert_tpu.models.layers import Conv2dBlock as JaxConv2dBlock
-from healthivert_tpu_torch.data import create_dataset
+from healthivert_tpu_torch.config.options import check_ported
 from healthivert_tpu_torch.engine.train_loop import run_training
 from healthivert_tpu_torch.models import pix2pix
 from healthivert_tpu_torch.models.layers import Conv2dBlock, SNConv
@@ -268,14 +268,15 @@ def _opt(**kw):
         dataset_mode="synthetic", batch_size=2, seed=3, crop_size=64, ndf=8, lr=LR,
         beta1=0.5, gan_mode="vanilla", epoch_count=1, n_epochs=5, n_epochs_decay=5,
         lr_policy="linear", print_freq=2, compute_dtype="float32",
+        name="run", save_latest_freq=5000, save_epoch_freq=5, save_by_iter=False,
     )
     base.update(kw)
     return types.SimpleNamespace(**base)
 
 
-def test_run_training_on_the_cpu(capsys):
+def test_run_training_on_the_cpu(capsys, tmp_path):
     steps = []
-    state, cfg = run_training(_opt(), max_steps=2, device="cpu",
+    state, cfg = run_training(_opt(checkpoints_dir=str(tmp_path)), max_steps=2, device="cpu",
                               on_step=lambda step, losses: steps.append(step))
     assert steps == [1, 2] and state.step == 2
     assert cfg.ngf == 16 and cfg.image_size == 64 and cfg.gan_head_preupdate
@@ -284,9 +285,10 @@ def test_run_training_on_the_cpu(capsys):
     assert "final losses" in out and "G_GAN" in out
 
 
-def test_run_training_stops_on_non_finite_losses():
+def test_run_training_stops_on_non_finite_losses(tmp_path):
     with pytest.raises(FloatingPointError):
-        run_training(_opt(lr=1e30, beta1=0.0), max_steps=3, device="cpu")
+        run_training(_opt(lr=1e30, beta1=0.0, checkpoints_dir=str(tmp_path)), max_steps=3,
+                     device="cpu")
 
 
 def test_unported_options_raise():
@@ -294,4 +296,4 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pix2pix.Pix2PixConfig(**kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_dataset(_opt(dataset_mode="aligned"))
+        check_ported(_opt(mesh="data:2", isTrain=True))
