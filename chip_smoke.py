@@ -84,7 +84,30 @@ JSON line:
                 the port's PNG reader. Its line has the wall seconds of each
                 CLI, per patient and the NIfTI IO share, the train CLI's ms per
                 step with data loading and the loader's examples/s
- 13. ablate     the forward's stage ablation, once in bf16 and once in f32:
+ 13. hgam       the classifier CLI (python -m healthivert_tpu_torch.cli.
+                grad_cam_3d_sagittal) on the cli phase's cohort at its
+                defaults (width 32, batch 16, band 128, z_context 2, lr
+                1e-3): `train` for 60 steps (cut from 500), then `generate`
+                for all 40 vertebrae; finite losses, every CAM volume finite
+                and in [0, 1]; each vertebra's Grad-CAM++ recomputed with the
+                trained weights on the port's CPU path within 1e-4 of the
+                card's (TF32 off), the same class votes. Its line has the ms
+                per train step split into host batch assembly and device
+                time, the seconds per vertebra of `generate` and the
+                held-out vote accuracy
+ 14. grade      the grading chain through the user's CLIs on a cohort of 13
+                patients x 5 vertebrae (256 x 256 x 64; patients 0-5 train,
+                6-9 test, 10-12 val; one fractured vertebra each, grade 2 at
+                height ratio 0.7 or grade 3 at 0.5): the classifier CLI
+                (train 60 steps, generate); the 3D CLI on those CAMs
+                (shipped generator, bf16, --slice_batch 64), tensor-core
+                launches equal to its dispatches; generation_eval_sagittal on
+                the val split on the card, every average within rtol 1e-4 of
+                the same CLI with --gpu_ids -1; rhlv_quantification sagittal
+                and coronal; svm_grading and svm_grading_2_5d, each report
+                present and finite. Its line has each stage's wall seconds
+                and both reports' macro F1 and accuracy
+ 15. ablate     the forward's stage ablation, once in bf16 and once in f32:
                 every mode in both layouts, kernel vs plain on soft
                 attention at (64, 32, 32, 64) and (1, 6, 10, 20) in bf16 and
                 at (2, 32, 32, 64), (1, 6, 10, 20) and (64, 32, 32, 64) in
@@ -103,7 +126,7 @@ JSON line:
                 run(mode="full"); a profiled call of every mode and of v1
                 holds the route's own GEMMs and no CUDA-core, library or
                 other-route GEMM
- 14. timing     each kernel, its plain version and its bound, bf16, CUDA
+ 16. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
                 (kernel ms from the ablation's own timing); the forward's,
@@ -118,7 +141,9 @@ JSON line:
                 TFLOP/s, the CUDA cores) and the 3xTF32 bound (495 / 3
                 TFLOP/s)
 
-then the `kernels` line (14 rows, each kernel in each dtype it runs, with
+then the `profiler` line (for each torch.profiler window, the kernel
+launches without a kernel record before its measured range and inside it;
+see MEASURED), the `kernels` line (14 rows, each kernel in each dtype it runs, with
 its dtype; the float32 launches of #1 and #2 are train_f32's, of #3 and
 #4-#7 the float32 ablation entry point's), and last the device line. Any
 failed check raises
@@ -776,39 +801,48 @@ def phase_synth3d(gen, cfg, vert_ids=(19, 20, 21), batch_size=64):
 CLI_PATIENTS, CLI_VERTS = 8, (18, 19, 20, 21, 22)
 
 
-def write_cli_cohort(root):
+def write_cli_cohort(root, patients=CLI_PATIENTS, phase_of=None, fracture_of=None, cams=True):
     """The cohort as NIfTI (CT uint8, labels int16, CAM float32 under CAM/
-    with the _0 suffix) and its vertebra_data.json. A patient's vertebrae
-    share one volume, written once and copied."""
+    with the _0 suffix when `cams`) and its vertebra_data.json. A patient's
+    vertebrae share one volume, written once and copied. phase_of(p) names
+    a patient's split (default: the first half train, the rest test);
+    fracture_of(p) gives its fractured vertebra's (height ratio, grade)
+    (default: 0.6, grade 2 or 3 by the patient's parity)."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
     from healthivert_tpu_torch.utils import nifti
 
-    for d in ("CT", "label", "CAM"):
+    phase_of = phase_of or (lambda p: "train" if p < patients // 2 else "test")
+    fracture_of = fracture_of or (lambda p: (0.6, 2 + p % 2))
+    for d in ("CT", "label") + (("CAM",) if cams else ()):
         (root / d).mkdir(parents=True, exist_ok=True)
-    split = {"train": {}, "test": {}}
+    split = {}
 
     def patient(p):
         frac = CLI_VERTS[1 + p % 3]
-        ct, labels, cam = make_spine_volume(np.random.default_rng(100 + p), fractured={frac: 0.6})
+        ratio, grade = fracture_of(p)
+        ct, labels, cam = make_spine_volume(np.random.default_rng(100 + p),
+                                            fractured={frac: ratio})
         first = None
         for v in CLI_VERTS:
-            names = [root / "CT" / f"p{p}_{v}.nii.gz", root / "label" / f"p{p}_{v}.nii.gz",
-                     root / "CAM" / f"p{p}_{v}_0.nii.gz"]
+            names = [root / "CT" / f"p{p}_{v}.nii.gz", root / "label" / f"p{p}_{v}.nii.gz"]
+            arrs = [ct.astype(np.uint8), labels.astype(np.int16)]
+            if cams:
+                names.append(root / "CAM" / f"p{p}_{v}_0.nii.gz")
+                arrs.append(cam.astype(np.float32))
             if first is None:
-                for arr, path in zip((ct.astype(np.uint8), labels.astype(np.int16),
-                                      cam.astype(np.float32)), names):
+                for arr, path in zip(arrs, names):
                     nifti.save(nifti.Nifti1Image(arr), path)
                 first = names
             else:
                 for a, b in zip(first, names):
                     shutil.copyfile(a, b)
-        return {f"p{p}_{v}": (2 + p % 2 if v == frac else 0) for v in CLI_VERTS}
+        return {f"p{p}_{v}": (grade if v == frac else 0) for v in CLI_VERTS}
 
     with ThreadPoolExecutor(8) as pool:
-        for p, grades in enumerate(pool.map(patient, range(CLI_PATIENTS))):
-            split["train" if p < CLI_PATIENTS // 2 else "test"].update(grades)
+        for p, grades in enumerate(pool.map(patient, range(patients))):
+            split.setdefault(phase_of(p), {}).update(grades)
     (root / "vertebra_data.json").write_text(json.dumps(split))
     return split
 
@@ -832,7 +866,29 @@ def _counting_steps(train_loop, record):
     return wrapped
 
 
-def phase_cli():
+def in_scratch(phase):
+    """Run `phase(tmp, quiet)`: tmp a new temporary directory, quiet a
+    redirect of stdout into tmp/phase.log. The log's tail goes to stderr if
+    the phase fails; the directory, with all the phase wrote there, is
+    removed after it either way."""
+
+    @functools.wraps(phase)
+    def run():
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{phase.__name__}_") as tmp:
+            tmp = Path(tmp)
+            with open(tmp / "phase.log", "a") as log:
+                try:
+                    return phase(tmp, contextlib.redirect_stdout(log))
+                except Exception:
+                    log.flush()
+                    print((tmp / "phase.log").read_text()[-4000:], file=sys.stderr)
+                    raise
+
+    return run
+
+
+@in_scratch
+def phase_cli(tmp, quiet):
     """The port's three CLIs on a straightened cohort written as NIfTI: 3D
     synthesis on every patient (shipped weights through --load_npz, bf16,
     --slice_batch 64) bit-equal to synthesize_volumes called directly; the
@@ -850,12 +906,10 @@ def phase_cli():
     from healthivert_tpu_torch.utils import nifti
 
     t_phase = time.perf_counter()
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
     data = tmp / "cohort"
     t0 = time.perf_counter()
     split = write_cli_cohort(data)
     write_s = time.perf_counter() - t0
-    quiet = contextlib.redirect_stdout(open(tmp / "cli.log", "a"))
 
     # 3D synthesis CLI
     for fn in (attention_v2, attention_v2_bwd):
@@ -997,6 +1051,200 @@ def phase_cli():
          phase_s=time.perf_counter() - t_phase)
 
 
+# the classifier CLI's training steps in phases hgam and grade, cut from its
+# default of 500; its other flags stay at their defaults (width 32, batch
+# 16, band 128, z_context 2, lr 1e-3)
+HGAM_STEPS = 60
+# Grad-CAM++ on the card against the port's CPU path, TF32 off
+CAM_TOL = 1e-4
+
+
+@in_scratch
+def phase_hgam(tmp, quiet):
+    """The classifier CLI on the cli phase's cohort (8 patients x 5
+    vertebrae): `train` for HGAM_STEPS steps, then `generate` for every
+    vertebra; finite losses, every CAM volume finite and in [0, 1]; each CAM
+    volume that `generate` wrote on the card held to Grad-CAM++ on the
+    port's CPU path from the same checkpoint, pasted at the vertebra's band
+    rows and slices, and its class to the CPU's vote."""
+    from healthivert_tpu_torch.cli import grad_cam_3d_sagittal as gc
+    from healthivert_tpu_torch.engine.checkpoint import restore_classifier
+    from healthivert_tpu_torch.models.hgam import grad_cam_pp
+    from healthivert_tpu_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    data = tmp / "cohort"
+    write_cli_cohort(data, cams=False)
+    flags = ["--dataroot", str(data), "--split", str(data / "vertebra_data.json")]
+    dev = torch.device("cuda")
+    args = gc.parse_args(["train", *flags, "--out", str(tmp / "cls"),
+                          "--steps", str(HGAM_STEPS)])
+    model = gc.new_classifier(2 * args.z_context + 1, args.seed, dev)
+    t0 = time.perf_counter()
+    with quiet:
+        stats = gc.train(args, model, dev)
+    train_wall = time.perf_counter() - t0
+    del model
+    check(len(stats["loss"]) == HGAM_STEPS and np.isfinite(stats["loss"]).all(),
+          f"hgam: losses {stats['loss'][:3]}...")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet:
+        gen = gc.main(["generate", *flags, "--ckpt", str(tmp / "cls"), "--out", str(tmp / "cam")])
+    gen_wall = time.perf_counter() - t0
+    n_verts = CLI_PATIENTS * len(CLI_VERTS)
+    check(len(gen["classes"]) == n_verts, f"hgam: {len(gen['classes'])} CAM volumes")
+
+    cpu = gc.new_classifier(2 * args.z_context + 1, args.seed, "cpu")
+    restore_classifier(cpu, tmp / "cls")
+    cpu.eval()
+    cache = gc.VolumeCache(args.dataroot)
+    cam_err, slices = 0.0, 0
+    for pv, cls in gen["classes"].items():
+        vol = nifti.load(tmp / "cam" / f"{pv}_{cls}.nii.gz").data
+        check(bool(np.isfinite(vol).all()) and vol.min() >= 0 and vol.max() <= 1 + 1e-6,
+              f"hgam: CAM {pv} not finite or out of [0, 1]")
+        sl, idx, r0, _, _ = gc._vert_slices(args, cache, pv)
+        x = torch.from_numpy(sl)
+        cams = grad_cam_pp(cpu, x).numpy()
+        ref = np.zeros_like(vol)
+        for k, z in enumerate(idx):
+            ref[r0:r0 + cams.shape[1], :, z] = cams[k, :, :, 0]
+        cam_err = max(cam_err, float(np.abs(vol - ref).max()))
+        vote_cpu = int(gc.slice_preds(cpu, x).mean() > 0.5)
+        check(vote_cpu == cls, f"hgam: {pv} votes {cls} on the card, {vote_cpu} on the CPU")
+        slices += len(sl)
+    check(cam_err <= CAM_TOL, f"hgam: Grad-CAM++ card vs CPU {cam_err:.3g} > {CAM_TOL}")
+    emit("hgam", cohort=dict(patients=CLI_PATIENTS, vertebrae=n_verts, volume=[256, 256, 64]),
+         flags=dict(steps=args.steps, batch=args.batch, band=args.band,
+                    z_context=args.z_context, lr=args.lr, width=32),
+         train=dict(wall_s=train_wall,
+                    step_ms_mean=1e3 * float(np.mean(np.add(stats["host_s"], stats["device_s"]))),
+                    host_ms_median=1e3 * float(np.median(stats["host_s"])),
+                    device_ms_median=1e3 * float(np.median(stats["device_s"])),
+                    host_ms_first=1e3 * stats["host_s"][0],
+                    loss_first_last=[stats["loss"][0], stats["loss"][-1]],
+                    vote_accuracy=stats["vote_accuracy"]),
+         generate=dict(wall_s=gen_wall, s_per_vertebra=gen_wall / n_verts,
+                       s_per_vertebra_median=float(np.median(list(gen["seconds"].values()))),
+                       fractured_votes=sum(gen["classes"].values()), slices=slices),
+         cam_max_abs_err_card_vs_cpu=cam_err, votes_equal=True,
+         phase_s=time.perf_counter() - t_phase)
+
+
+# the grade phase's cohort: 13 patients of five vertebrae, one fractured
+# each (height ratio 0.7, grade 2, for even patients; 0.5, grade 3, for odd
+# ones), patients 0-5 train, 6-9 test, 10-12 val (cut from 10-14: with five
+# val patients the phase took 132 s on an H100, over its ~120 s)
+GRADE_PATIENTS = 13
+GRADE_RTOL = 1e-4  # generation metrics, card vs --gpu_ids -1
+
+
+def grade_phase_of(p):
+    return "train" if p < 6 else ("test" if p < 10 else "val")
+
+
+@in_scratch
+def phase_grade(tmp, quiet):
+    """The grading chain through the user's CLIs on a cohort with train,
+    test and val splits: the classifier CLI (train, generate), the 3D CLI on
+    its CAMs (shipped generator, bf16, batch 64; bf16 tensor-core launches
+    equal to its dispatches), generation_eval_sagittal on the val split on
+    the card and with --gpu_ids -1 (every average within GRADE_RTOL),
+    rhlv_quantification sagittal and coronal, svm_grading and
+    svm_grading_2_5d; every report present and finite."""
+    from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
+    from healthivert_tpu_torch.cli import (
+        generation_eval_sagittal,
+        grad_cam_3d_sagittal,
+        rhlv_quantification,
+        rhlv_quantification_coronal,
+        svm_grading,
+        svm_grading_2_5d,
+    )
+
+    t_phase = time.perf_counter()
+    data = tmp / "cohort"
+    t0 = time.perf_counter()
+    split = write_cli_cohort(data, GRADE_PATIENTS, grade_phase_of,
+                             lambda p: (0.7, 2) if p % 2 == 0 else (0.5, 3), cams=False)
+    wall = {"write": time.perf_counter() - t0}
+    split_file = str(data / "vertebra_data.json")
+
+    def stage(name, fn, *argv):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with quiet:
+            out = fn(list(argv))
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        return out
+
+    cls_flags = ["--dataroot", str(data), "--split", split_file]
+    stage("classifier_train", grad_cam_3d_sagittal.main, "train", *cls_flags,
+          "--out", str(tmp / "cls"), "--steps", str(HGAM_STEPS))
+    gen = stage("classifier_generate", grad_cam_3d_sagittal.main, "generate", *cls_flags,
+                "--ckpt", str(tmp / "cls"), "--out", str(tmp / "cam"))
+    n_verts = GRADE_PATIENTS * len(CLI_VERTS)
+    check(len(gen["classes"]) == n_verts, f"grade: {len(gen['classes'])} CAM volumes")
+
+    for fn in (attention_v2, attention_v2_bwd):
+        fn.launches = fn.tc_launches = fn.tf32_launches = 0
+    infer3d._forward.dispatches = 0
+    out3d = tmp / "output_3d"
+    stats = stage("eval_3d", e3_cli.main, "--dataroot", str(data), "--name", "grade",
+                  "--checkpoints_dir", str(tmp / "ck"), "--results_dir", str(out3d / "healthivert"),
+                  "--load_npz", str(PRETRAINED_NPZ), "--slice_batch", "64",
+                  "--cam_dir", str(tmp / "cam"))
+    launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+    check(launches > 0 and launches == dispatches == attention_v2.launches,
+          f"grade 3D CLI: tensor-core launches {launches}, all {attention_v2.launches}, "
+          f"dispatches {dispatches}")
+    check(len(stats["patients"]) == GRADE_PATIENTS, f"grade 3D CLI: {len(stats['patients'])}")
+
+    geneval = ["--split", split_file, "--phase", "val", "--ct_folder", str(data / "CT"),
+               "--label_folder", str(data / "label"), "--output_folder", str(out3d)]
+    card = stage("generation_eval_card", generation_eval_sagittal.main, *geneval,
+                 "--result_folder", str(tmp / "geneval_card"))
+    cpu = stage("generation_eval_cpu", generation_eval_sagittal.main, *geneval,
+                "--result_folder", str(tmp / "geneval_cpu"), "--gpu_ids", "-1")
+    (card_avg,), (cpu_avg,) = card.values(), cpu.values()
+    check(card_avg["count"] == cpu_avg["count"] > 0, f"grade: generation counts {card_avg}")
+    gen_err = max(abs(card_avg[k] - cpu_avg[k]) / max(abs(cpu_avg[k]), 1e-30) for k in cpu_avg)
+    check(gen_err <= GRADE_RTOL and all(np.isfinite(v) for v in card_avg.values()),
+          f"grade: generation metrics card vs CPU rel {gen_err:.3g}")
+
+    rhlv = ["--split", split_file, "--label_folder", str(data / "label"),
+            "--output_folder", str(out3d)]
+    sag = stage("rhlv_sagittal", rhlv_quantification.main, *rhlv,
+                "--result_folder", str(tmp / "rhlv_sag"))
+    cor = stage("rhlv_coronal", rhlv_quantification_coronal.main, *rhlv,
+                "--result_folder", str(tmp / "rhlv_cor"))
+    for tables in (sag, cor):
+        (rows,) = tables.values()
+        check(len(rows) == n_verts and all(np.isfinite(list(r.values())[3:]).all() for r in rows),
+              f"grade: RHLV rows {len(rows)}")
+    grades = stage("svm_grading", svm_grading.main, "--result_folder", str(tmp / "rhlv_sag"),
+                   "--grading_folder", str(tmp / "grades"))
+    (report, summary), = grades.items()
+    g25 = stage("svm_grading_2_5d", svm_grading_2_5d.main, "--sagittal", next(iter(sag)),
+                "--coronal", next(iter(cor)), "--output", str(tmp / "grades_25d.txt"))
+    for path, summ in ((report, summary), (str(tmp / "grades_25d.txt"), g25)):
+        check(Path(path).is_file() and Path(path).read_text().startswith("Fold 1:"),
+              f"grade: report {path}")
+        check(all(np.isfinite([v["mean"], v["var"]]).all() for v in summ.values()),
+              f"grade: report {path} not finite")
+    emit("grade", cohort=dict(patients=GRADE_PATIENTS, vertebrae=n_verts,
+                              volume=[256, 256, 64], **{k: len(v) for k, v in split.items()}),
+         wall_s=wall, eval_3d=dict(dispatches=dispatches, launches=launches,
+                                   patient_s=stats["patients"]),
+         classifier_fractured_votes=sum(gen["classes"].values()),
+         generation_val=card_avg, generation_card_vs_cpu_rel=gen_err,
+         sagittal=dict(f1=summary["f1"]["mean"], accuracy=summary["accuracy"]["mean"]),
+         grading_25d=dict(f1=g25["f1"]["mean"], accuracy=g25["accuracy"]["mean"]),
+         phase_s=time.perf_counter() - t_phase)
+
+
 # the names of the float32 route's kernels (the attention's share of a
 # float32 train step)
 TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "fuse_softmax_tc",
@@ -1005,18 +1253,19 @@ TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "f
 
 def phase_train(dtype="bfloat16", warmup=2, timed=20):
     """run_training on the shipped recipe (its own dtype bf16, or float32,
-    the train CLI's default); counts read per step. One more step after the
-    timed ones runs under torch.profiler. The launch counts are set to 0
-    just before run_training and read just after. Returns the backward's
-    launches on the dtype's route."""
+    the train CLI's default); counts read per step. Two more steps after
+    the timed ones run under torch.profiler, the first unmeasured (see
+    MEASURED). The launch counts are set to 0 just before run_training and
+    read just after. Returns the backward's launches on the dtype's route."""
+    from torch.profiler import record_function
+
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
     opt.compute_dtype = dtype
-    opt.checkpoints_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")  # logs, checkpoints
     counter = ROUTE_COUNTER[getattr(torch, dtype)]
     per_step, marks, losses_seen = [], [], []
-    prof = kernel_profiler()
+    prof, measured = kernel_profiler(), record_function(MEASURED)
 
     def on_step(step, losses):
         per_step.append((getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)))
@@ -1026,20 +1275,26 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
         if step == warmup + timed:
             prof.start()
         elif step == warmup + timed + 1:
+            measured.__enter__()
+        elif step == warmup + timed + 2:
+            measured.__exit__(None, None, None)
             prof.stop()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in (attention_v2, attention_v2_bwd):
         fn.launches = fn.tc_launches = fn.tf32_launches = 0
-    state, cfg = run_training(opt, max_steps=warmup + timed + 1, device="cuda", on_step=on_step)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckdir:
+        opt.checkpoints_dir = ckdir  # logs, checkpoints
+        state, cfg = run_training(opt, max_steps=warmup + timed + 2, device="cuda",
+                                  on_step=on_step)
     torch.cuda.synchronize()
     fwd, bwd = getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)
     peak = torch.cuda.max_memory_allocated()
     steps = [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip([(0, 0)] + per_step, per_step)]
     name = "train_" + {"bfloat16": "bf16", "float32": "f32"}[dtype]
     check(cfg.compute_dtype == dtype, f"{name}: config dtype {cfg.compute_dtype}")
-    check(state.step == warmup + timed + 1, f"{name}: {state.step} steps")
+    check(state.step == warmup + timed + 2, f"{name}: {state.step} steps")
     finite = torch.isfinite(torch.stack(losses_seen)).all(dim=1).tolist()
     check(all(finite), f"{name}: non-finite losses at steps {[i + 1 for i, f in enumerate(finite) if not f]}")
     check(all(d == (1, 1) for d in steps), f"{name}: {counter} per step {steps}")
@@ -1062,12 +1317,13 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
          step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
          max_memory_allocated_bytes=peak,
          fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
-    summary = kernel_summary(prof)
+    times, missing = measured_kernels(prof)
+    summary = kernel_summary(times)
+    summary.update(launches_without_kernel_record=missing)
     if dtype == "float32":
-        times = kernel_ms(prof)
         attn = sum(ms for k, ms in times.items() if any(n in k for n in TF32_KERNELS))
         summary.update(attention_device_ms=attn, attention_share=attn / summary["device_ms"])
-    emit("profile", of=f"one train step of the recipe, {dtype} (step {warmup + timed + 1}, batch "
+    emit("profile", of=f"one train step of the recipe, {dtype} (step {warmup + timed + 2}, batch "
          f"{opt.batch_size})", **summary)
     return bwd
 
@@ -1077,23 +1333,44 @@ def kernel_profiler():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def kernel_ms(prof, calls=1):
-    """Device ms per call of each CUDA kernel in a finished profile (CUPTI
-    records the ctypes-launched kernels too), largest first."""
-    times = {}
-    for e in prof.key_averages():
-        # kernels and copies; not the spans that annotate them (Adam.step)
-        if e.device_type != torch.autograd.DeviceType.CUDA or getattr(e, "is_user_annotation", False):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        times[e.key] = times.get(e.key, 0.0) + us / 1e3 / calls
-    return dict(sorted(times.items(), key=lambda kv: -kv[1]))
+# The profiler's records on the card's machine can lack kernels that a
+# window ran first, though their launches are recorded; the older the
+# process, the more (none at the start of a run of this script). So a
+# profiled window first runs its work unmeasured for PROFILE_WARM_S, counts
+# only the kernels launched inside its MEASURED range, and is taken again,
+# up to PROFILE_TRIES times, until every launch in that range has its
+# kernel's record. PROFILE_LOST holds, for each window, the launches without
+# a record before that range and inside it (phase profiler prints them).
+PROFILE_WARM_S = 0.1
+PROFILE_TRIES = 5
+MEASURED = "chip_smoke.measured"
+PROFILE_LOST = []
 
 
-def kernel_summary(prof, calls=1, top=10):
-    times = kernel_ms(prof, calls)
+def measured_kernels(prof, calls=1):
+    """(device ms per call of each kernel and copy launched inside the
+    profile's MEASURED range, largest first; the kernel launches without a
+    kernel record before that range and inside it)."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    span = next(e for e in events if e.device_type() == cpu and e.name() == MEASURED)
+    runtime = {e.correlation_id(): e for e in events
+               if e.device_type() == cpu and e.name().startswith("cu")
+               and e.start_ns() <= span.end_ns()}
+    inside = {c for c, e in runtime.items() if e.start_ns() >= span.start_ns()}
+    times, recorded = {}, set()
+    for e in events:
+        if e.device_type() == cuda and not e.is_user_annotation():
+            recorded.add(e.correlation_id())
+            if e.correlation_id() in inside:
+                times[e.name()] = times.get(e.name(), 0.0) + e.duration_ns() / 1e6 / calls
+    lost = [c for c, e in runtime.items() if "Launch" in e.name() and c not in recorded]
+    lost_inside = sum(c in inside for c in lost)
+    PROFILE_LOST.append((len(lost) - lost_inside, lost_inside))
+    return dict(sorted(times.items(), key=lambda kv: -kv[1])), lost_inside
+
+
+def kernel_summary(times, top=10):
     total = sum(times.values())
     return {"device_ms": total, "kernels": len(times),
             "top": [{"kernel": k[:160], "ms": v, "share": v / total if total else None}
@@ -1102,11 +1379,7 @@ def kernel_summary(prof, calls=1, top=10):
 
 def top_kernels(fn):
     """The top ten device kernels of one call of fn."""
-    torch.cuda.synchronize()
-    with kernel_profiler() as prof:
-        fn()
-        torch.cuda.synchronize()
-    return kernel_summary(prof)
+    return kernel_summary(profile_ms(fn, calls=1))
 
 
 # stages of the tensor-core route, by a part of each kernel's name; the
@@ -1139,13 +1412,28 @@ NOT_ON_A_ROUTE = re.compile(r"score_kernel|paste_kernel|fuse_softmax_kernel|dpro
 
 
 def profile_ms(fn, calls=5):
-    """Device ms per call of each kernel over `calls` calls of fn."""
-    torch.cuda.synchronize()
-    with kernel_profiler() as prof:
-        for _ in range(calls):
-            fn()
+    """Device ms per call of each kernel over `calls` calls of fn, from a
+    window in which each of their launches has its kernel's record."""
+    from torch.profiler import record_function
+
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return kernel_ms(prof, calls)
+        with kernel_profiler() as prof:
+            start = time.perf_counter()
+            while True:  # unmeasured: the records the profiler may lack
+                fn()
+                torch.cuda.synchronize()
+                if time.perf_counter() - start >= PROFILE_WARM_S:
+                    break
+            with record_function(MEASURED):
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+        times, missing = measured_kernels(prof, calls)
+        if not missing:
+            return times
+    check(False, f"profile: launches without a kernel record in each of {PROFILE_TRIES} "
+          f"windows: {PROFILE_LOST[-PROFILE_TRIES:]}")
 
 
 def by_stage(times, stages):
@@ -1157,11 +1445,6 @@ def by_stage(times, stages):
         stage = next((st for st, part in stages if part in name), "wrapper")
         split[stage] += ms
     return split
-
-
-def stage_split(fn, stages, calls=5):
-    """Device ms per call of each stage over `calls` calls of fn."""
-    return by_stage(profile_ms(fn, calls), stages)
 
 
 def _bound(flops, nbytes, peak):
@@ -1441,6 +1724,8 @@ def main():
     bwd_launches = phase_train("bfloat16", timed=20)
     f32_launches = phase_train("float32", timed=10)
     phase_cli()
+    phase_hgam()
+    phase_grade()
     phase_profile_fwd(gen, cfg)
     del gen
     ablation, ablate_launches = phase_ablate()
@@ -1475,6 +1760,9 @@ def main():
                       replaces=f"experiments/attn_ablate.py:{line}",
                       launches=counts[name], **timing[name])
                  for name, line in ABLATE_REPLACES.items()]
+    emit("profiler", windows=len(PROFILE_LOST),
+         windows_taken_again=sum(inside > 0 for _, inside in PROFILE_LOST),
+         launches_without_kernel_record_before_and_inside=PROFILE_LOST)
     check(len(rows) == 14, f"kernels line: {len(rows)} rows")
     print(json.dumps({"kernels": [{
         "name": r["name"], "dtype": r["dtype"], "route": "cuda", "source": r["source"],

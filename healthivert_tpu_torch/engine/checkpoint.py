@@ -11,6 +11,10 @@ a generator-only one holds the generator's state dict. Each file is written
 to a temporary name and moved into place (`os.replace`), so a crash never
 leaves a torn checkpoint.
 
+The fracture classifier (HGAM) is kept as ``{out}/classifier.pt`` beside
+the ``meta.json`` its CLI writes; the JAX package's CLI keeps an orbax
+``{out}/classifier/`` there instead.
+
 The shipped `checkpoints/pretrained_synthetic/generator` is orbax; its trees
 are exported once to `weights/pretrained_synthetic_generator.npz`
 (tests/test_torch_weights.py holds the two equal and writes the file), which
@@ -117,6 +121,28 @@ def orbax_error(run_dir, tag) -> RuntimeError:
         "the port cannot read; pass --load_npz with the generator exported to "
         f".npz (the shipped one: {PRETRAINED_NPZ})"
     )
+
+
+def save_classifier(model, out_dir) -> str:
+    """Write the fracture classifier's state dict to {out_dir}/classifier.pt."""
+    return _write({"kind": "classifier", "classifier": model.state_dict()}, out_dir, "classifier")
+
+
+def restore_classifier(model, out_dir):
+    """Load {out_dir}/classifier.pt into `model`. A directory that holds only
+    the JAX package's orbax classifier/ raises."""
+    if not latest_exists(out_dir, "classifier") and orbax_exists(out_dir, "classifier"):
+        raise RuntimeError(
+            f"{out_dir}/classifier/ is a checkpoint of the JAX package (orbax), which "
+            "the port cannot read; restore it with the JAX package and carry its params "
+            "across with healthivert_tpu_torch.utils.weights.flax_classifier_to_state_dict, "
+            "then save_classifier"
+        )
+    obj = _read(out_dir, "classifier", next(model.parameters()).device)
+    if obj.get("kind") != "classifier":
+        raise ValueError(f"{checkpoint_path(out_dir, 'classifier')} holds no classifier")
+    model.load_state_dict(obj["classifier"])
+    return model
 
 
 def restore_generator_pth(gen: Generator, pth_path) -> Generator:

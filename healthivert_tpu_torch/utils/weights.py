@@ -16,6 +16,11 @@ become the state dict of `models.discriminator`: kernels OIHW, scale and
 bias the norm's weight and bias, mean and var its running_mean and
 running_var.
 
+The flax fracture classifier (HGAM) stores {"params"}: ``conv<i>/kernel``
+HWIO and ``bias``, GroupNorm ``gn<i>/scale`` and ``bias``, and the head
+``fc/kernel`` (in, out) and ``bias``. They become the state dict of
+`models.hgam.FractureClassifier`: ``convs.<i>``, ``norms.<i>`` and ``fc``.
+
 The trees arrive as nested dicts of numpy arrays, or as a flat ``.npz``
 whose keys are the tree paths joined by "/" (``params/coarse_generator/
 conv1/conv/kernel``, ``sn/.../u``).
@@ -23,6 +28,7 @@ conv1/conv/kernel``, ``sn/.../u``).
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -91,6 +97,26 @@ def flax_discriminator_to_state_dict(params: Mapping,
         if name == "kernel":
             a = a.transpose(3, 2, 0, 1)
         sd[".".join(mod + [names[name]])] = torch.from_numpy(np.array(a, order="C"))
+    return sd
+
+
+def flax_classifier_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax classifier variables (or their "params" tree) -> state dict of
+    `models.hgam.FractureClassifier`."""
+    params = params.get("params", params)
+    modules = {"conv": "convs.{}", "gn": "norms.{}", "fc": "fc"}
+    names = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+    sd: Dict[str, torch.Tensor] = {}
+    for path, leaf in flatten_tree(params).items():
+        mod, name = path.split("/")
+        a = np.asarray(leaf, np.float32)
+        m = re.fullmatch(r"(conv|gn)(\d)|fc", mod)
+        if not m or name not in names or (name == "scale") != (m.group(1) == "gn" and name != "bias"):
+            raise ValueError(f"unexpected classifier variable {path} {a.shape}")
+        if name == "kernel":
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        key = modules[m.group(1) or "fc"].format(m.group(2)) + "." + names[name]
+        sd[key] = torch.from_numpy(np.array(a, order="C"))
     return sd
 
 

@@ -2,7 +2,8 @@
 (tests/test_torch_cli*.py): four patients whose (64, 64, 16) spines hold
 vertebrae 19-21, with files for vertebrae 20 and 21 (vertebra 19 sits too
 close to the top row for the synthesis's band), CT uint8 and labels int16
-as NIfTI, and a split with patient 1's vertebra 20 fractured (grade 3).
+as NIfTI, and a split with patient 1's vertebra 20 fractured (grade 3);
+and a cohort for the evaluation CLIs (`write_eval_cohort`).
 Written with the port's copies of the synthetic spine and the NIfTI writer
 (held equal to the JAX package's by tests/test_torch_infer3d.py and
 tests/test_torch_nifti.py), so that the card-only tests, on a machine
@@ -40,6 +41,41 @@ def write_cohort(root):
                        os.path.join(root, "label", f"p{p}_{v}.nii.gz"))
     with open(os.path.join(root, "vertebra_data_local.json"), "w") as f:
         json.dump(SPLIT, f)
+    return root
+
+
+def write_eval_cohort(root):
+    """CT/ (uint8), label/ (int16) and a split.json of 12 train/test and 4
+    val vertebrae (128 x 128 x 32, vertebra 20 graded 0, 2 or 3 by its
+    compression), and output_3d/{exp_sag, exp_coronal}/ with CT_fake/ and
+    label_fake/ (a healthy spine, the CT with noise): the input of the
+    RHLV, grading and generation-quality CLIs. Returns root."""
+    from pathlib import Path
+
+    root = Path(root)
+    exps = ("exp_sag", "exp_coronal")
+    for d in ["CT", "label"] + [f"output_3d/{e}/{s}" for e in exps
+                                for s in ("CT_fake", "label_fake")]:
+        (root / d).mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(0)
+    kw = dict(shape=(128, 128, 32), vert_ids=(19, 20, 21), vert_height=18, gap=8)
+    split = {"train": {}, "test": {}, "val": {}}
+    fracs = (1.0, 0.5, 1.0, 0.7, 1.0, 0.55, 1.0, 0.75, 1.0, 0.6, 1.0, 0.72, 1.0, 0.5, 0.7, 1.0)
+    for i, frac in enumerate(fracs):
+        pv = f"p{i:02d}_20"
+        ct, lb, _ = make_spine_volume(rng, fractured={20: frac}, **kw)
+        fct, flb, _ = make_spine_volume(rng, **kw)
+        fct = np.clip(fct + rng.normal(0, 5, fct.shape), 0, 255)
+        nifti.save(nifti.Nifti1Image(ct.astype(np.uint8)), str(root / "CT" / f"{pv}.nii.gz"))
+        nifti.save(nifti.Nifti1Image(lb), str(root / "label" / f"{pv}.nii.gz"))
+        for e in exps:
+            nifti.save(nifti.Nifti1Image(fct.astype(np.float32)),
+                       str(root / "output_3d" / e / "CT_fake" / f"{pv}.nii.gz"))
+            nifti.save(nifti.Nifti1Image(flb.astype(np.float32)),
+                       str(root / "output_3d" / e / "label_fake" / f"{pv}.nii.gz"))
+        phase = "train" if i < 8 else ("test" if i < 12 else "val")
+        split[phase][pv] = 0 if frac == 1.0 else (3 if frac <= 0.6 else 2)
+    (root / "split.json").write_text(json.dumps(split))
     return root
 
 

@@ -8,15 +8,24 @@ the card, which has no JAX, leave out the repository's conftest:
   tests/cli_cohort.py equals synthesize_volumes called on the card with
   the same generator and volumes, bit for bit, with one tensor-core launch
   per dispatch;
-- a train CLI run resumed with --continue_train continues the step count.
+- a train CLI run resumed with --continue_train continues the step count;
+- the classifier CLI (grad_cam_3d_sagittal) on the card against
+  --gpu_ids -1, TF32 off: `train` from one init, the losses within 1e-4 and
+  the same held-out votes; `generate` from one checkpoint, the same class
+  suffixes and CAMs within atol 1e-4;
+- generation_eval_sagittal on the card against --gpu_ids -1 on the cohort
+  of cli_cohort.write_eval_cohort: every average within rtol 1e-4.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
-from cli_cohort import NPZ, write_cohort
+from cli_cohort import NPZ, write_cohort, write_eval_cohort
 from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3
+from healthivert_tpu_torch.cli import generation_eval_sagittal, grad_cam_3d_sagittal
 from healthivert_tpu_torch.cli import train as train_cli
 from healthivert_tpu_torch.engine import infer3d
 from healthivert_tpu_torch.engine.checkpoint import load_generator
@@ -32,6 +41,14 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(cuda_device):
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def test_eval_3d_cli_equals_synthesize_volumes(cuda_device, tmp_path):
@@ -67,3 +84,43 @@ def test_train_cli_resume_continues(cuda_device, tmp_path):
     assert resumed.step == 3
     saved = torch.load(tmp_path / "ck" / "experiment_name" / "latest.pt", weights_only=True)
     assert saved["step"] == 3
+
+
+def test_classifier_cli_card_equals_cpu(no_tf32, tmp_path):
+    cohort = write_cohort(str(tmp_path / "cohort"))
+    flags = ["--dataroot", cohort, "--split", f"{cohort}/vertebra_data_local.json"]
+    train = ["train", "--steps", "3", "--batch", "2"] + flags
+    runs = {}
+    for ids in ("0", "-1"):
+        args = grad_cam_3d_sagittal.parse_args(train + ["--out", str(tmp_path / f"cls{ids}"),
+                                                         "--gpu_ids", ids])
+        dev = torch.device("cuda" if ids == "0" else "cpu")
+        model = grad_cam_3d_sagittal.new_classifier(5, 0, dev)
+        runs[ids] = grad_cam_3d_sagittal.train(args, model, dev)
+    np.testing.assert_allclose(runs["0"]["loss"], runs["-1"]["loss"], atol=1e-4)
+    assert runs["0"]["vote_accuracy"] == runs["-1"]["vote_accuracy"]
+    gen = {}
+    for ids in ("0", "-1"):
+        gen[ids] = grad_cam_3d_sagittal.main(
+            ["generate"] + flags + ["--ckpt", str(tmp_path / "cls-1"),
+                                    "--out", str(tmp_path / f"cam{ids}"), "--gpu_ids", ids])
+    assert gen["0"]["classes"] == gen["-1"]["classes"] and len(gen["0"]["classes"]) == 8
+    for pv, cls in gen["0"]["classes"].items():
+        a = nifti.load(tmp_path / "cam0" / f"{pv}_{cls}.nii.gz").data
+        b = nifti.load(tmp_path / "cam-1" / f"{pv}_{cls}.nii.gz").data
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=pv)
+
+
+def test_generation_eval_card_equals_cpu(cuda_device, tmp_path):
+    r = write_eval_cohort(tmp_path / "cohort")
+    flags = ["--split", str(r / "split.json"), "--ct_folder", str(r / "CT"),
+             "--label_folder", str(r / "label"), "--output_folder", str(r / "output_3d")]
+    card = generation_eval_sagittal.main(flags + ["--result_folder", str(tmp_path / "card")])
+    cpu = generation_eval_sagittal.main(flags + ["--result_folder", str(tmp_path / "cpu"),
+                                                 "--gpu_ids", "-1"])
+    assert len(card) == len(cpu) == 2
+    for (pc, c), (pp, p) in zip(sorted(card.items()), sorted(cpu.items())):
+        assert os.path.basename(pc) == os.path.basename(pp) and list(c) == list(p)
+        assert c["count"] == p["count"] == 2
+        for k in p:
+            np.testing.assert_allclose(c[k], p[k], rtol=1e-4, err_msg=k)

@@ -1,7 +1,8 @@
 """Guards: the port and chip_smoke.py import nothing of JAX or of the JAX
 package (nor the repository's root `experiments` and `bench` modules, which
-are JAX code), nor PIL, which the machine with the card lacks; and
-importing the port leaves them unloaded."""
+are JAX code), nor PIL, scikit-learn (`sklearn`), pandas, nibabel,
+scikit-image (`skimage`) or openpyxl, which the machine with the card
+lacks; and importing the port leaves them unloaded."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "healthivert_tpu_torch"
 BANNED = {"jax", "jaxlib", "flax", "optax", "orbax", "healthivert_tpu", "experiments", "bench",
-          "PIL"}
+          "PIL", "sklearn", "pandas", "nibabel", "skimage", "openpyxl"}
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -42,7 +43,10 @@ def test_guard_sees_the_whole_package():
     assert {"ops/attention_cuda.py", "engine/infer3d.py", "models/generator.py",
             "utils/weights.py", "data/sampler.py", "experiments/attn_ablate.py",
             "cli/train.py", "cli/test.py", "cli/eval_3d_sagittal_twostage.py",
-            "config/options.py", "engine/visualizer.py", "utils/nifti.py"} <= names
+            "config/options.py", "engine/visualizer.py", "utils/nifti.py",
+            "models/hgam.py", "cli/grad_cam_3d_sagittal.py", "evaluation/svm.py",
+            "evaluation/grading.py", "evaluation/rhlv.py", "evaluation/generation.py",
+            "utils/table.py", "cli/svm_grading_2_5d.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
