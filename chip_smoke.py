@@ -6,10 +6,12 @@ shipped pretrained_synthetic weights and training recipe) and holds its CUDA
 kernels against their plain PyTorch versions. Phases, each printing one
 JSON line:
 
-  1. device     card name and count, nvidia-smi name and power limit; TF32
-                is switched off for the float32 phases (PyTorch's own
-                matmuls and convolutions; the float32 attention route runs
-                3xTF32 by design)
+  1. device     card name and count, nvidia-smi name and power limit. No
+                phase switches TF32 off for the process: each CLI sets
+                exact float32 itself (utils.device.float32_exact: PyTorch's
+                own matmuls and convolutions without TF32; the float32
+                attention route runs 3xTF32 by design), and the phases that
+                call the library directly call that helper first
   2. build      one nvcc process per source for sm_90a, all started
                 together (csrc/attention_tc.cu, attention_tf32.cu,
                 attention_tc_v1.cu, attention_tf32_v1.cu,
@@ -22,7 +24,9 @@ JSON line:
                 instantiations, the depth-1 ring's included) must hold HGMMA
                 (wgmma, all TF32 in the float32 ones) and UTMALDG (TMA
                 loads); then, for comparison, the seconds of one nvcc call
-                over the same files (its library thrown away)
+                over the same files (its library thrown away); and the host
+                geometry library of the de-pedicle masks (native/geometry.cpp,
+                g++) that phase straighten loads
   3. kernel     attention_v2 kernel vs plain version at B=4, 32 x 32, C=64,
                 f32 (3xTF32 route, counted by tf32_launches) and bf16
                 (tensor-core route), hole band in the middle, bottom and
@@ -81,9 +85,16 @@ JSON line:
                 that checkpoint to step 4; the test CLI's gallery of 4 images
                 on the run's latest checkpoint, one forward launch per image,
                 index.html and its 28 PNGs (offset_flow among them) decoded by
-                the port's PNG reader. Its line has the wall seconds of each
-                CLI, per patient and the NIfTI IO share, the train CLI's ms per
-                step with data loading and the loader's examples/s
+                the port's PNG reader; the train CLI at its default dtype,
+                float32, for 10 steps with --profile_steps 7,9: one forward
+                and one backward launch on the 3xTF32 route per step; the
+                same as a process of its own, as a user starts it, with a
+                kernel record in its trace for every kernel launch. Each CLI
+                runs with PyTorch's TF32 defaults restored before it, and
+                must leave float32 exact. Its line has the wall seconds of
+                each CLI, per patient and the NIfTI IO share, the train
+                CLI's ms per step with data loading, the loader's
+                examples/s, and the float32 train CLI's ms per step
  13. hgam       the classifier CLI (python -m healthivert_tpu_torch.cli.
                 grad_cam_3d_sagittal) on the cli phase's cohort at its
                 defaults (width 32, batch 16, band 128, z_context 2, lr
@@ -91,7 +102,8 @@ JSON line:
                 for all 40 vertebrae; finite losses, every CAM volume finite
                 and in [0, 1]; each vertebra's Grad-CAM++ recomputed with the
                 trained weights on the port's CPU path within 1e-4 of the
-                card's (TF32 off), the same class votes. Its line has the ms
+                card's (at the precision the CLI sets, TF32 off), the same
+                class votes. Its line has the ms
                 per train step split into host batch assembly and device
                 time, the seconds per vertebra of `generate` and the
                 held-out vote accuracy
@@ -107,7 +119,22 @@ JSON line:
                 and coronal; svm_grading and svm_grading_2_5d, each report
                 present and finite. Its line has each stage's wall seconds
                 and both reports' macro F1 and accuracy
- 15. ablate     the forward's stage ablation, once in bf16 and once in f32:
+ 15. straighten the first step of the user's chain, from raw CTs: two
+                patients of 512 x 512 x 400 voxels in Hounsfield units with
+                twelve vertebrae on a bent spine, one stored R, P, I, written
+                as NIfTI; location_json_local, then straighten_mask_3d
+                --reorient RAI on the card, and for one patient with
+                --gpu_ids -1: every label/ and mask_2d/ crop bit-equal card
+                vs CPU, every CT/ crop within 1e-3; every crop 256 x 256 x 64
+                with the reoriented CT's affine, holding its vertebra; then
+                the 3D CLI (bf16, --slice_batch 64) on one straightened
+                patient, tensor-core launches equal to its dispatches. Its
+                line has each patient's seconds split into NIfTI reads, the
+                HU window, the resamples, the label cleanup, the masks, the
+                writes and the rest; each resample's gather in ms (CUDA
+                events on the card, the host clock on the CPU), its knots,
+                grid points and peak device memory
+ 16. ablate     the forward's stage ablation, once in bf16 and once in f32:
                 every mode in both layouts, kernel vs plain on soft
                 attention at (64, 32, 32, 64) and (1, 6, 10, 20) in bf16 and
                 at (2, 32, 32, 64), (1, 6, 10, 20) and (64, 32, 32, 64) in
@@ -126,7 +153,7 @@ JSON line:
                 run(mode="full"); a profiled call of every mode and of v1
                 holds the route's own GEMMs and no CUDA-core, library or
                 other-route GEMM
- 16. timing     each kernel, its plain version and its bound, bf16, CUDA
+ 17. timing     each kernel, its plain version and its bound, bf16, CUDA
                 events: the forward at B=64, the backward at B=32, v1 at
                 B=64; the ablation's entry functions in mode full at B=64
                 (kernel ms from the ablation's own timing); the forward's,
@@ -158,6 +185,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
@@ -196,6 +224,7 @@ from healthivert_tpu_torch.ops.attention_cuda import (
     attention_v2_reference,
     v1_patches,
 )
+from healthivert_tpu_torch.utils.device import float32_exact
 
 RECIPE = Path(__file__).resolve().parent / "checkpoints" / "pretrained_synthetic" / "train_opt.txt"
 
@@ -270,8 +299,6 @@ def attention_inputs(b, hd, wd, c, band, dtype, seed=0, fscale=0.05):
 
 
 def phase_device():
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -279,7 +306,8 @@ def phase_device():
     print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         tf32="off for the float32 phases (cudnn.allow_tf32 and matmul.allow_tf32 False)")
+         tf32="as each CLI sets it (utils.device.float32_exact: cudnn.allow_tf32 and "
+              "matmul.allow_tf32 False); phases that call the library directly call it too")
 
 
 def one_call_build_seconds():
@@ -344,10 +372,18 @@ def tc_sass(path):
 
 
 def phase_build():
+    from healthivert_tpu_torch.ops import native_geometry
+
     _, info = attention_cuda.load_library(force_build=True)
     report = [ln.strip() for ln in info.ptxas.splitlines()
               if "Used" in ln or "spill" in ln or "Compiling entry" in ln or "C7515" in ln]
+    t0 = time.perf_counter()
+    geometry = native_geometry.build()
+    native_geometry.load_library()
+    geometry_s = time.perf_counter() - t0
     emit("build", seconds=info.seconds, one_call_seconds=one_call_build_seconds(),
+         geometry=dict(library=geometry.name, seconds=geometry_s,
+                       flags=native_geometry.CXX_FLAGS),
          flags=list(attention_cuda.NVCC_FLAGS),
          sources=[n for n in attention_cuda.SOURCES if n.endswith(".cu")],
          tc_sass=tc_sass(info.path), ptxas=report)
@@ -360,6 +396,7 @@ def route_counts():
 
 
 def phase_kernel():
+    float32_exact()
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
@@ -416,6 +453,7 @@ def backward_inputs(b, hd, wd, c, band, dtype, seed=0, fscale=0.05):
 
 
 def phase_kernel_bwd():
+    float32_exact()
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(2, 16, 16, 4, "bottom", torch.float32), (2, 16, 16, 4, "top", torch.bfloat16),
@@ -452,6 +490,7 @@ def v1_counts():
 
 
 def phase_kernel_v1():
+    float32_exact()
     cases = [(4, 32, 32, 64, band, dt) for dt in (torch.float32, torch.bfloat16)
              for band in ("middle", "bottom", "top")]
     cases += [(1, 6, 10, 20, "bottom", torch.float32), (1, 6, 10, 20, "top", torch.bfloat16),
@@ -555,6 +594,7 @@ def phase_ablate(batch=64, dtype=torch.bfloat16):
     before it and read just after, then its stage split beside the
     profiler's, and the kernels of a profiled call of every mode and of v1.
     Returns the entry point's result and those counts."""
+    float32_exact()
     worst, ab = {}, attn_ablate.attention_v2_ablate
     counter = ROUTE_COUNTER[dtype]
     for case, hd, wd, (fd, bd, b_full, mm), soft in ablate_cases(batch, dtype):
@@ -660,6 +700,7 @@ def to_device(batch, dev):
 
 
 def phase_fwd_f32():
+    float32_exact()
     cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="float32")
     batch = SyntheticDataset(batch_size=2, seed=0, n_volumes=2).sample_batch()
     gen_gpu = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
@@ -688,6 +729,7 @@ def phase_grad_f32():
     weights (shipped generator, seeded discriminators) and batch. D2 and
     the edge loss read the binarised fine seg map, so the check first
     requires card and CPU to put every pixel on the same side of 0.5."""
+    float32_exact()
     cfg = Pix2PixConfig(ngf=16, ndf=64, image_size=256, compute_dtype="float32")
     batch = SyntheticDataset(batch_size=2, seed=0, n_volumes=2).sample_batch()
     runs, seg = {}, {}
@@ -847,19 +889,20 @@ def write_cli_cohort(root, patients=CLI_PATIENTS, phase_of=None, fracture_of=Non
     return split
 
 
-def _counting_steps(train_loop, record):
+def _counting_steps(train_loop, record, counter="tc_launches"):
     """Wrap the training loop's train_step so that each step records its
-    launches on the bf16 route and the host clock, after a synchronise,
-    before and after it."""
+    launches on the route of `counter` (bf16: tc_launches, float32:
+    tf32_launches) and the host clock, after a synchronise, before and
+    after it."""
     step_fn = train_loop.train_step
 
     def wrapped(state, batch, lr, cfg):
-        f0, b0 = attention_v2.tc_launches, attention_v2_bwd.tc_launches
+        f0, b0 = getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = step_fn(state, batch, lr, cfg)
         torch.cuda.synchronize()
-        record.append((attention_v2.tc_launches - f0, attention_v2_bwd.tc_launches - b0,
+        record.append((getattr(attention_v2, counter) - f0, getattr(attention_v2_bwd, counter) - b0,
                        time.perf_counter(), int(batch["full"].shape[0]), t0))
         return out
 
@@ -887,6 +930,24 @@ def in_scratch(phase):
     return run
 
 
+def tf32_defaults():
+    """PyTorch's own float32 settings, as a process has them before a CLI's
+    main runs: cuDNN convolutions in TF32, CUDA matmuls in float32."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def check_exact(what):
+    """The precision a CLI leaves: TF32 off (utils.device.float32_exact)."""
+    check(torch.backends.cudnn.allow_tf32 is False
+          and torch.backends.cuda.matmul.allow_tf32 is False, f"{what}: TF32 left on")
+
+
+# the train CLI at its default dtype, float32: steps, and the --profile_steps
+# window whose trace must hold a kernel record for every launch
+F32_CLI_STEPS, F32_CLI_PROFILE = 10, (7, 9)
+
+
 @in_scratch
 def phase_cli(tmp, quiet):
     """The port's three CLIs on a straightened cohort written as NIfTI: 3D
@@ -894,14 +955,18 @@ def phase_cli(tmp, quiet):
     --slice_batch 64) bit-equal to synthesize_volumes called directly; the
     train CLI on the shipped recipe's flags (batch 32, bf16) for 4 steps with
     a checkpoint at step 2, evaluated every epoch, then resumed from that
-    checkpoint for 2 more steps; the test CLI's gallery of 4 images on the
-    run's latest checkpoint. Each CLI runs with the counts set to 0 just
-    before it and read just after."""
+    checkpoint for 2 more steps; the train CLI at its default dtype, float32,
+    for F32_CLI_STEPS steps with a --profile_steps window, whose trace holds
+    a kernel record for every launch; the test CLI's gallery of 4 images on
+    the run's latest checkpoint. Each CLI runs with the counts set to 0 just
+    before it and read just after, and with PyTorch's TF32 defaults before
+    it: each must leave float32 exact."""
     from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
     from healthivert_tpu_torch.cli import test as test_cli
     from healthivert_tpu_torch.cli import train as train_cli
     from healthivert_tpu_torch.data.aligned import AlignedDataset
     from healthivert_tpu_torch.engine import train_loop
+    from healthivert_tpu_torch.engine.train_loop import trace_kernel_records
     from healthivert_tpu_torch.engine.visualizer import read_png
     from healthivert_tpu_torch.utils import nifti
 
@@ -915,6 +980,7 @@ def phase_cli(tmp, quiet):
     for fn in (attention_v2, attention_v2_bwd):
         fn.launches = fn.tc_launches = fn.tf32_launches = 0
     infer3d._forward.dispatches = 0
+    tf32_defaults()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with quiet:
@@ -924,6 +990,7 @@ def phase_cli(tmp, quiet):
                              "--cam_dir", str(data / "CAM")])
     torch.cuda.synchronize()
     e3_wall = time.perf_counter() - t0
+    check_exact("3D CLI")
     launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
     check(launches > 0 and launches == dispatches == attention_v2.launches,
           f"3D CLI: tensor-core launches {launches}, all {attention_v2.launches}, "
@@ -964,27 +1031,74 @@ def phase_cli(tmp, quiet):
     try:
         for fn in (attention_v2, attention_v2_bwd):
             fn.launches = fn.tc_launches = fn.tf32_launches = 0
+        tf32_defaults()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with quiet:
             state, tcfg = train_cli.main(flags)
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
+        check_exact("train CLI")
         fwd_all, bwd_all = attention_v2.tc_launches, attention_v2_bwd.tc_launches
         first = list(record)
         record.clear()
+        tf32_defaults()
         with quiet:
             resumed, _ = train_cli.main(flags + ["--continue_train", "--load_iter",
                                                  str(2 * recipe.batch_size)])
+        check_exact("train CLI, resumed")
+        resumed_steps = list(record)
     finally:
         train_loop.train_step = orig
+
+    # the train CLI at its default dtype (float32) with a profiled window
+    f32_flags = ["--dataroot", str(data), "--cam_dir", str(data / "CAM"),
+                 "--checkpoints_dir", str(tmp / "ck"), "--batch_size", str(recipe.batch_size),
+                 "--seed", str(recipe.seed), "--direction", recipe.direction,
+                 "--print_freq", str(recipe.batch_size), "--display_freq", "0",
+                 "--save_epoch_freq", "1000", "--save_latest_freq", "1000000",
+                 "--eval_freq", "1000", "--max_steps", str(F32_CLI_STEPS),
+                 "--profile_steps", ",".join(map(str, F32_CLI_PROFILE))]
+    f32_record = []
+    train_loop.train_step = _counting_steps(train_loop, f32_record, "tf32_launches")
+    try:
+        for fn in (attention_v2, attention_v2_bwd):
+            fn.launches = fn.tc_launches = fn.tf32_launches = 0
+        tf32_defaults()
+        with quiet:
+            f32_state, f32_cfg = train_cli.main(f32_flags + ["--name", "smoke_f32"])
+        check_exact("float32 train CLI")
+    finally:
+        train_loop.train_step = orig
+    check(f32_cfg.compute_dtype == "float32" and f32_state.step == F32_CLI_STEPS
+          and [r[:2] for r in f32_record] == [(1, 1)] * F32_CLI_STEPS,
+          f"float32 train CLI: dtype {f32_cfg.compute_dtype}, steps {f32_state.step}, "
+          f"float32-route launches per step {[r[:2] for r in f32_record]}")
+    # the trace of that window, in this process after the earlier phases'
+    # profiler sessions; then the same CLI as a user starts it, in a process
+    # of its own, whose trace must hold every kernel's record
+    in_process = trace_kernel_records(tmp / "ck" / "smoke_f32" / "profile" / "trace.json")
+    t0 = time.perf_counter()
+    with open(tmp / "train_f32_process.log", "w") as log:
+        subprocess.run([sys.executable, "-m", "healthivert_tpu_torch.cli.train", *f32_flags,
+                        "--name", "smoke_f32_process"], stdout=log, stderr=subprocess.STDOUT,
+                       cwd=Path(__file__).resolve().parent, timeout=600, check=True)
+    process_s = time.perf_counter() - t0
+    trace_launches, trace_lost = trace_kernel_records(
+        tmp / "ck" / "smoke_f32_process" / "profile" / "trace.json")
+    check(trace_launches > 0 and trace_lost == 0,
+          f"float32 train CLI --profile_steps trace: {trace_lost} of {trace_launches} "
+          "kernel launches without a kernel record")
+    f32_step_ms = [(r[2] - r[4]) * 1e3 for r in f32_record]
+    # the steps before the profiled window, less the first
+    f32_timed = f32_step_ms[1:F32_CLI_PROFILE[0]]
     run_dir = tmp / "ck" / "smoke"
     check(tcfg.compute_dtype == "bfloat16" and state.step == 4, f"train CLI: {state.step} steps")
     check([r[:2] for r in first] == [(1, 1)] * 4 and [r[3] for r in first] == [32] * 4,
           f"train CLI: launches and batch per step {[(r[0], r[1], r[3]) for r in first]}")
     check(bwd_all == 4 and fwd_all >= 4, f"train CLI: launches {fwd_all}, {bwd_all}")
-    check(resumed.step == 4 and [r[:2] for r in record] == [(1, 1)] * 2,
-          f"resume: step {resumed.step}, steps run {len(record)}")
+    check(resumed.step == 4 and [r[:2] for r in resumed_steps] == [(1, 1)] * 2,
+          f"resume: step {resumed.step}, steps run {len(resumed_steps)}")
     for tag in ("iter_64", "iter_128", "latest", "4"):
         check((run_dir / f"{tag}.pt").is_file(), f"train CLI: checkpoint {tag}.pt missing")
     recs = [json.loads(line) for line in (run_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1013,6 +1127,7 @@ def phase_cli(tmp, quiet):
     # test CLI on the run's latest checkpoint
     for fn in (attention_v2, attention_v2_bwd):
         fn.launches = fn.tc_launches = fn.tf32_launches = 0
+    tf32_defaults()
     t0 = time.perf_counter()
     with quiet:
         test_cli.main(["--dataroot", str(data), "--cam_dir", str(data / "CAM"), "--name", "smoke",
@@ -1020,6 +1135,7 @@ def phase_cli(tmp, quiet):
                        "--num_test", "4"])
     torch.cuda.synchronize()
     test_wall = time.perf_counter() - t0
+    check_exact("test CLI")
     check(attention_v2.tc_launches == attention_v2.launches == 4,
           f"test CLI: {attention_v2.tc_launches} tensor-core launches for 4 images")
     web = tmp / "res" / "smoke" / "test_latest"
@@ -1046,6 +1162,13 @@ def phase_cli(tmp, quiet):
                     eval=[{k: r[k] for k in ("step", "ssim", "psnr", "dice", "iou", "diff_h")}
                           for r in evals[:4]],
                     resumed_at=2, resumed_to=resumed.step),
+         train_f32=dict(steps=F32_CLI_STEPS, batch=recipe.batch_size, precision="float32_exact",
+                        step_ms=f32_step_ms, timed_steps=[2, F32_CLI_PROFILE[0]],
+                        ms_per_step_timed=float(np.mean(f32_timed)),
+                        profile_steps=list(F32_CLI_PROFILE),
+                        trace_in_process_launches_without_record=list(in_process),
+                        process_wall_s=process_s, trace_kernel_launches=trace_launches,
+                        trace_launches_without_kernel_record=trace_lost),
          test=dict(wall_s=test_wall, images=4, pngs=len(pngs),
                    launches=attention_v2.tc_launches),
          phase_s=time.perf_counter() - t_phase)
@@ -1076,22 +1199,23 @@ def phase_hgam(tmp, quiet):
     data = tmp / "cohort"
     write_cli_cohort(data, cams=False)
     flags = ["--dataroot", str(data), "--split", str(data / "vertebra_data.json")]
-    dev = torch.device("cuda")
-    args = gc.parse_args(["train", *flags, "--out", str(tmp / "cls"),
-                          "--steps", str(HGAM_STEPS)])
-    model = gc.new_classifier(2 * args.z_context + 1, args.seed, dev)
+    train_flags = ["train", *flags, "--out", str(tmp / "cls"), "--steps", str(HGAM_STEPS)]
+    args = gc.parse_args(train_flags)
+    tf32_defaults()
     t0 = time.perf_counter()
     with quiet:
-        stats = gc.train(args, model, dev)
+        stats = gc.main(train_flags)
     train_wall = time.perf_counter() - t0
-    del model
+    check_exact("classifier CLI train")
     check(len(stats["loss"]) == HGAM_STEPS and np.isfinite(stats["loss"]).all(),
           f"hgam: losses {stats['loss'][:3]}...")
+    tf32_defaults()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with quiet:
         gen = gc.main(["generate", *flags, "--ckpt", str(tmp / "cls"), "--out", str(tmp / "cam")])
     gen_wall = time.perf_counter() - t0
+    check_exact("classifier CLI generate")
     n_verts = CLI_PATIENTS * len(CLI_VERTS)
     check(len(gen["classes"]) == n_verts, f"hgam: {len(gen['classes'])} CAM volumes")
 
@@ -1172,12 +1296,14 @@ def phase_grade(tmp, quiet):
     split_file = str(data / "vertebra_data.json")
 
     def stage(name, fn, *argv):
+        tf32_defaults()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with quiet:
             out = fn(list(argv))
         torch.cuda.synchronize()
         wall[name] = time.perf_counter() - t0
+        check_exact(f"grade: {name}")
         return out
 
     cls_flags = ["--dataroot", str(data), "--split", split_file]
@@ -1245,6 +1371,241 @@ def phase_grade(tmp, quiet):
          phase_s=time.perf_counter() - t_phase)
 
 
+# the straightening phase's raw cohort: two patients of a CT's full size,
+# 512 x 512 x 400 voxels (0.8 x 0.8 x 1 mm), twelve vertebrae each (labels
+# 13-24), p1 stored R, P, I (flipped along axis 1, the sagittal normal,
+# about which the spine is symmetric: location_json_local's centroids of
+# the stored mask then hold after --reorient RAI too)
+RAW_SHAPE, RAW_VERTS = (512, 512, 400), tuple(range(13, 25))
+# the order-1 CT resample, card vs --gpu_ids -1, on the window's 0-255 scale
+STRAIGHT_CT_ATOL = 1e-3
+# the crops straighten_mask_3d writes by default (--size)
+STRAIGHT_SIZE = (256, 256, 64)
+
+
+@contextlib.contextmanager
+def straighten_timers(acc):
+    """Time the straightening pipeline's steps: each call of process_mask3d
+    appends a patient's record to acc, and each step inside it adds its
+    seconds (after a synchronise) there: NIfTI reads, the HU window, the two
+    resamples (host clock; the gather itself by CUDA events on the card,
+    with its knots, grid points and peak device memory), the label cleanup
+    and the de-pedicle masks; `rest` is the patient's wall time less those.
+    The crops' writes run on the pipeline's thread pool, beside the rest:
+    `write_thread_s` sums their seconds over the threads."""
+    from unittest import mock
+
+    from healthivert_tpu_torch.cli import straighten_mask_3d as cli
+    from healthivert_tpu_torch.straighten import curve, pipeline
+    from healthivert_tpu_torch.utils import nifti
+
+    lock = threading.Lock()
+
+    def step(key, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            with lock:
+                acc[-1][key] = acc[-1].get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def patient(fn):
+        def run(*args, **kwargs):
+            acc.append({})
+            out = step("patient", fn)(*args, **kwargs)
+            rec = acc[-1]
+            rec["rest"] = rec["patient"] - sum(
+                v for k, v in rec.items()
+                if k not in ("patient", "write_thread_s") and isinstance(v, float))
+            return out
+        return run
+
+    def resample(fn):
+        def run(self, array, shape, fill_value=0, order=1, device="cuda"):
+            torch.cuda.reset_peak_memory_stats()
+            out = step("resample", fn)(self, array, shape, fill_value, order, device)
+            acc[-1].setdefault("peak_device_bytes", []).append(torch.cuda.max_memory_allocated())
+            return out
+        return run
+
+    def gather(fn):
+        def run(volume, coords, order=1, cval=0.0):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(volume, coords, order, cval)
+            end.record()
+            end.synchronize()
+            rec = acc[-1].setdefault("gather", [])
+            rec.append(dict(order=order, device=volume.device.type, knots=int(coords.shape[1]),
+                            points=coords[0].numel(),
+                            ms=start.elapsed_time(end) if volume.is_cuda
+                            else (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, wrap in (
+                (cli, "process_mask3d", patient), (pipeline, "process_mask3d", patient),
+                (nifti, "load", lambda fn: step("read", fn)),
+                (nifti, "save", lambda fn: step("write_thread_s", fn)),
+                (pipeline, "window", lambda fn: step("window", fn)),
+                (pipeline, "remove_spine_labels_after_split",
+                 lambda fn: step("label_cleanup", fn)),
+                (curve.Interpolator, "interpolate_along", resample),
+                (curve, "map_coordinates_3d", gather)):
+            stack.enter_context(mock.patch.object(obj, name, wrap(getattr(obj, name))))
+        stack.enter_context(mock.patch.dict(pipeline._MASK_STRATEGIES, {
+            "rect": step("masks", pipeline._MASK_STRATEGIES["rect"])}))
+        yield acc
+
+
+@in_scratch
+def phase_straighten(tmp, quiet):
+    """The first step of the user's chain on raw CTs of a scan's full size:
+    location_json_local, then straighten_mask_3d --reorient RAI on the card
+    for both patients and with --gpu_ids -1 for p1 (through --split); every
+    label/ and mask_2d/ crop bit-equal between card and CPU, every CT/ crop
+    within STRAIGHT_CT_ATOL; every crop of the default size with the
+    reoriented CT's affine and holding its vertebra; then the 3D CLI (bf16,
+    --slice_batch 64) on p0's crops, its tensor-core launches equal to its
+    dispatches. Each CLI runs with PyTorch's TF32 defaults before it and
+    must leave float32 exact."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
+    from healthivert_tpu_torch.cli import location_json_local, straighten_mask_3d
+    from healthivert_tpu_torch.data.raw_spine import make_raw_spine, raw_affine, write_raw_patient
+    from healthivert_tpu_torch.utils import nifti
+
+    t_phase = time.perf_counter()
+    raw = tmp / "raw"
+    patients = ("p0", "p1")
+
+    def write(p):
+        ct, labels = make_raw_spine(np.random.default_rng(200 + p), RAW_SHAPE, RAW_VERTS,
+                                    bend=(40.0, -30.0)[p])
+        if p == 1:
+            ct, labels = ct[:, ::-1], labels[:, ::-1]
+        write_raw_patient(raw, patients[p], ct, labels, raw_affine(RAW_SHAPE, flip_axis1=p == 1),
+                          ("msk", "seg")[p])
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(patients)) as pool:
+        list(pool.map(write, range(len(patients))))
+    wall = {"write_raw": time.perf_counter() - t0}
+
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with quiet:
+        cents = location_json_local.main(["--root", str(raw)])
+    wall["location_json_local"] = time.perf_counter() - t0
+    check_exact("location_json_local")
+    check({p: [e["label"] for e in cents[p]] for p in cents} == {p: list(RAW_VERTS)
+                                                                 for p in patients},
+          f"straighten: centroids of {cents.keys()}")
+
+    card, cpu = [], []
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with straighten_timers(card), quiet:
+        done = straighten_mask_3d.main(["--root", str(raw), "--out", str(tmp / "card"),
+                                        "--reorient", "RAI"])
+    wall["straighten_card"] = time.perf_counter() - t0
+    check_exact("straighten_mask_3d")
+    split = tmp / "split.json"
+    split.write_text(json.dumps({"cpu": {"p1": list(RAW_VERTS)}}))
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with straighten_timers(cpu), quiet:
+        done_cpu = straighten_mask_3d.main(["--root", str(raw), "--out", str(tmp / "cpu"),
+                                            "--reorient", "RAI", "--split", str(split),
+                                            "--gpu_ids", "-1"])
+    wall["straighten_cpu_p1"] = time.perf_counter() - t0
+    check_exact("straighten_mask_3d --gpu_ids -1")
+    check(sorted(done) == sorted(f"{p}_{v}" for p in patients for v in RAW_VERTS)
+          and done_cpu == [f"p1_{v}" for v in RAW_VERTS], f"straighten: crops {done} {done_cpu}")
+    check(all(r["gather"][0]["device"] == "cuda" for r in card)
+          and all(r["gather"][0]["device"] == "cpu" for r in cpu),
+          "straighten: resample devices")
+
+    t0 = time.perf_counter()
+    # the reoriented CT's affine, as a NIfTI header stores it (float32)
+    affine = {p: nifti.reorient_to(nifti.load(raw / p / f"{p}_{suffix}.nii.gz"),
+                                   ("R", "A", "I")).affine.astype(np.float32).astype(np.float64)
+              for p, suffix in zip(patients, ("msk", "seg"))}
+    ct_err, held = 0.0, []
+    kinds = ("CT", "label", "mask_2d")
+    keys = ([("card", k, n) for k in kinds for n in done]
+            + [("cpu", k, n) for k in kinds for n in done_cpu])
+    with ThreadPoolExecutor(8) as pool:  # zlib releases the GIL
+        files = dict(zip(keys, pool.map(
+            lambda key: nifti.load(tmp.joinpath(*key[:2], f"{key[2]}.nii.gz")), keys)))
+    for name in done:
+        p, v = name.split("_")
+        crops = {k: files[("card", k, name)] for k in kinds}
+        for k, img in crops.items():
+            check(img.data.shape == STRAIGHT_SIZE and np.array_equal(img.affine, affine[p]),
+                  f"straighten: {k}/{name} shape {img.data.shape} or affine")
+            check(bool(np.isfinite(img.data).all()), f"straighten: {k}/{name} not finite")
+        held.append(int((crops["label"].data == int(v)).sum()))
+        check(held[-1] > 0, f"straighten: label/{name} does not hold vertebra {v}")
+        if name in done_cpu:
+            for k, img in crops.items():
+                ref = files[("cpu", k, name)].data
+                if k == "CT":
+                    ct_err = max(ct_err, float(np.abs(img.data - ref).max()))
+                else:
+                    check(np.array_equal(img.data, ref), f"straighten: {k}/{name} card != CPU")
+    check(ct_err <= STRAIGHT_CT_ATOL, f"straighten: CT card vs CPU {ct_err:.3g}")
+    wall["checks"] = time.perf_counter() - t0
+
+    # the chain's next step on the card: the 3D CLI on p0's straightened crops
+    one = tmp / "p0_straightened"
+    for k in ("CT", "label"):
+        (one / k).mkdir(parents=True)
+        for v in RAW_VERTS:
+            (one / k / f"p0_{v}.nii.gz").symlink_to(tmp / "card" / k / f"p0_{v}.nii.gz")
+    for fn in (attention_v2, attention_v2_bwd):
+        fn.launches = fn.tc_launches = fn.tf32_launches = 0
+    infer3d._forward.dispatches = 0
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with quiet:
+        stats = e3_cli.main(["--dataroot", str(one), "--name", "e3s", "--checkpoints_dir",
+                             str(tmp / "ck"), "--results_dir", str(tmp / "out3d"),
+                             "--load_npz", str(PRETRAINED_NPZ), "--slice_batch", "64"])
+    torch.cuda.synchronize()
+    wall["eval_3d_p0"] = time.perf_counter() - t0
+    check_exact("3D CLI on straightened crops")
+    launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+    check(launches > 0 and launches == dispatches == attention_v2.launches,
+          f"straighten 3D CLI: tensor-core launches {launches}, all {attention_v2.launches}, "
+          f"dispatches {dispatches}")
+    for v in RAW_VERTS:
+        out = nifti.load(tmp / "out3d" / "CT_fake" / f"p0_{v}.nii.gz")
+        check(out.data.shape == STRAIGHT_SIZE and bool(np.isfinite(out.data).all()),
+              f"straighten 3D CLI: CT_fake/p0_{v}")
+
+    def split_s(recs):
+        keys = ("patient", "read", "window", "resample", "label_cleanup", "masks", "rest",
+                "write_thread_s")
+        return [{k: r.get(k, 0.0) for k in keys} | {"gather": r["gather"],
+                                                    "peak_device_bytes": r["peak_device_bytes"]}
+                for r in recs]
+
+    emit("straighten", cohort=dict(patients=len(patients), volume=list(RAW_SHAPE),
+                                   vertebrae=len(RAW_VERTS), stored=["RAI", "RPI"],
+                                   size=list(STRAIGHT_SIZE)),
+         wall_s=wall, card=split_s(card), cpu=split_s(cpu),
+         ct_max_abs_err_card_vs_cpu=ct_err, label_voxels_min=min(held),
+         eval_3d=dict(dispatches=dispatches, launches=launches, patient_s=stats["patients"]),
+         phase_s=time.perf_counter() - t_phase)
+
+
 # the names of the float32 route's kernels (the attention's share of a
 # float32 train step)
 TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "fuse_softmax_tc",
@@ -1259,6 +1620,7 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
     read just after. Returns the backward's launches on the dtype's route."""
     from torch.profiler import record_function
 
+    float32_exact()
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
@@ -1562,6 +1924,7 @@ def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     """The forward: bf16 as serving calls it, float32 with its residuals,
     as training calls it (the route's every output then held at its
     gate)."""
+    float32_exact()
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
     f32 = dtype == torch.float32
@@ -1589,6 +1952,7 @@ def phase_timing(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
 
 
 def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
+    float32_exact()
     args = backward_inputs(b, hd, wd, c, "middle", dtype, seed=1, fscale=timing_fscale(dtype))
     kernel = lambda: attention_v2_bwd(*args, hd, wd)
     plain = lambda: attention_v2_bwd_reference(*args, hd, wd)
@@ -1611,6 +1975,7 @@ def phase_timing_bwd(b=32, hd=32, wd=32, c=64, dtype=torch.bfloat16):
 def phase_timing_v1(b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     """v1 on patch tensors built beforehand; float32 also with its peak
     device memory and the kernels of a profiled call held to its route."""
+    float32_exact()
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
     patches = v1_patches(fd, bd, b_full)
@@ -1636,6 +2001,7 @@ def phase_timing_ablate(result, b=64, hd=32, wd=32, c=64, dtype=torch.bfloat16):
     """The ablation's entry functions in mode full on the entry point's own
     inputs: each against its plain version (error, and the plain version's
     time), beside the kernel time the entry point measured."""
+    float32_exact()
     fd, bd, b_full, mm = attn_ablate.make_inputs(b, hd, wd, c, dtype, torch.device("cuda"))
     bph = to_phases(b_full, hd, wd)
     plain = {
@@ -1675,6 +2041,7 @@ def phase_timing_ablate_f32(b=64, hd=32, wd=32, c=64):
     inputs, as the other float32 timings: each against its plain version
     (CUDA events, plain, kernel, kernel, plain), with both bounds and its
     stage split, and the kernels of a profiled call held to the route."""
+    float32_exact()
     dtype = torch.float32
     fd, bd, b_full, mm = attention_inputs(b, hd, wd, c, "middle", dtype, seed=1,
                                           fscale=timing_fscale(dtype))
@@ -1726,6 +2093,7 @@ def main():
     phase_cli()
     phase_hgam()
     phase_grade()
+    phase_straighten()
     phase_profile_fwd(gen, cfg)
     del gen
     ablation, ablate_launches = phase_ablate()

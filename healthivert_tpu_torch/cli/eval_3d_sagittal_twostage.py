@@ -30,6 +30,7 @@ from ..engine import checkpoint as ckpt
 from ..engine.infer3d import synthesize_volumes
 from ..models.pix2pix import Pix2PixConfig
 from ..utils import nifti
+from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
 
 
@@ -49,6 +50,7 @@ def pre_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None):
+    float32_exact()
     pre = pre_parser()
     ns, rest = pre.parse_known_args(argv)
     axis = 2 if ns.axis == "sagittal" else 1

@@ -23,9 +23,11 @@ import sys
 
 from ..config.options import device_from_gpu_ids
 from ..evaluation.generation import evaluate_experiment
+from ..utils.device import float32_exact
 
 
 def main(argv=None):
+    float32_exact()
     p = argparse.ArgumentParser()
     p.add_argument("--split", default="vertebra_data.json")
     p.add_argument("--phase", default="val")

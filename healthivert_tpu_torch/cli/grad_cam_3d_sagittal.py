@@ -52,6 +52,7 @@ from ..models.hgam import (
     make_optimizer,
 )
 from ..utils import nifti
+from ..utils.device import float32_exact
 
 
 def _slice_plan(labels, vert_id, band=0):
@@ -277,6 +278,7 @@ def generate(args, model, device) -> dict:
 
 
 def main(argv=None):
+    float32_exact()
     args = parse_args(argv)
     device = device_from_gpu_ids(args.gpu_ids)
     if args.mode == "train":

@@ -19,9 +19,11 @@ import os
 import sys
 
 from ..evaluation.rhlv import process_datasets
+from ..utils.device import float32_exact
 
 
 def main(argv=None):
+    float32_exact()
     p = argparse.ArgumentParser()
     p.add_argument("--split", default="vertebra_data.json")
     p.add_argument("--label_folder", required=True)

@@ -17,9 +17,11 @@ import os
 import sys
 
 from ..evaluation.grading import FEATURES_SAGITTAL, evaluate_svm
+from ..utils.device import float32_exact
 
 
 def main(argv=None):
+    float32_exact()
     p = argparse.ArgumentParser()
     p.add_argument("--result_folder", default="evaluation/RHLV_quantification")
     p.add_argument("--grading_folder", default="evaluation/classification_metric")

@@ -16,9 +16,11 @@ import argparse
 import sys
 
 from ..evaluation.grading import evaluate_svm_25d
+from ..utils.device import float32_exact
 
 
 def main(argv=None):
+    float32_exact()
     p = argparse.ArgumentParser()
     p.add_argument("--sagittal", required=True)
     p.add_argument("--coronal", required=True)

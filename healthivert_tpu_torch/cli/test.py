@@ -23,10 +23,12 @@ from ..engine import checkpoint as ckpt
 from ..engine.visualizer import HTMLGallery, save_images
 from ..models.pix2pix import Pix2PixConfig, generator_forward
 from ..ops.flow_viz import offsets_to_flow_image
+from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
 
 
 def main(argv=None):
+    float32_exact()
     pre = load_npz_parser()
     ns, rest = pre.parse_known_args(argv)
     opt = options_with(pre, TestOptions).parse(rest)

@@ -16,6 +16,7 @@ import sys
 
 from ..config.options import TestOptions, TrainOptions
 from ..engine.train_loop import run_training
+from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
 
 
@@ -35,6 +36,7 @@ def parse_profile_steps(spec):
 
 
 def main(argv=None):
+    float32_exact()
     pre = load_npz_parser()
     ns, rest = pre.parse_known_args(argv)
     opt = options_with(pre, TrainOptions).parse(rest)

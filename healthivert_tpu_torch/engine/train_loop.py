@@ -11,6 +11,7 @@ are not ported (ROADMAP.md section 1 item 7).
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import time
@@ -96,7 +97,10 @@ def _print_networks(state, verbose=False):
 
 class _Profiler:
     """The --profile_steps window: a torch.profiler trace of the steps in
-    [START, STOP), written to {run_dir}/profile as a Chrome trace."""
+    [START, STOP), written to {run_dir}/profile as a Chrome trace, with the
+    count of its kernel launches and of those without a kernel record
+    (`trace_kernel_records`): the profiler can lose the records of a
+    session's first kernels."""
 
     def __init__(self, run_dir):
         self.out_dir = os.path.join(run_dir, "profile")
@@ -114,13 +118,30 @@ class _Profiler:
     def stop(self, why=""):
         self.prof.stop()
         os.makedirs(self.out_dir, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(self.out_dir, "trace.json"))
+        path = os.path.join(self.out_dir, "trace.json")
+        self.prof.export_chrome_trace(path)
         self.prof = None
-        print(f"profiler trace{why} written to {self.out_dir}")
+        launches, lost = trace_kernel_records(path)
+        print(f"profiler trace{why} written to {self.out_dir}: {launches} kernel launches, "
+              f"{lost} without a kernel record")
 
     @property
     def on(self):
         return self.prof is not None
+
+
+def trace_kernel_records(path):
+    """(kernel launches, those without a kernel record) in a Chrome trace of
+    torch.profiler: the launch calls (cudaLaunchKernel, cuLaunchKernel and
+    their variants) matched to kernel records by correlation id."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["args"].get("correlation") for e in events
+               if e.get("cat") == "kernel" and "args" in e}
+    launches = [e["args"].get("correlation") for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "args" in e
+                and "Launch" in e.get("name", "")]
+    return len(launches), sum(c not in kernels for c in launches)
 
 
 def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device="cuda",

@@ -10,11 +10,20 @@ the card, which has no JAX, leave out the repository's conftest:
   per dispatch;
 - a train CLI run resumed with --continue_train continues the step count;
 - the classifier CLI (grad_cam_3d_sagittal) on the card against
-  --gpu_ids -1, TF32 off: `train` from one init, the losses within 1e-4 and
-  the same held-out votes; `generate` from one checkpoint, the same class
-  suffixes and CAMs within atol 1e-4;
+  --gpu_ids -1: `train` from one init, the losses within 1e-4 and the same
+  held-out votes; `generate` from one checkpoint, the same class suffixes
+  and CAMs within atol 1e-4;
 - generation_eval_sagittal on the card against --gpu_ids -1 on the cohort
-  of cli_cohort.write_eval_cohort: every average within rtol 1e-4.
+  of cli_cohort.write_eval_cohort: every average within rtol 1e-4;
+- straighten_mask_3d --reorient RAI on the card against --gpu_ids -1 on the
+  raw cohort of straighten_cohort.py: label and mask_2d crops bit-equal, CT
+  crops within 1e-3;
+- the float32 train CLI's --profile_steps trace holds a kernel record for
+  every kernel launch.
+
+The CLIs compared with the CPU run with PyTorch's TF32 defaults (cuDNN
+convolutions in TF32) before them, as a user's process has them: each CLI
+sets exact float32 itself (utils.device.float32_exact), and must leave it.
 """
 
 import os
@@ -25,13 +34,20 @@ import torch
 
 from cli_cohort import NPZ, write_cohort, write_eval_cohort
 from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3
-from healthivert_tpu_torch.cli import generation_eval_sagittal, grad_cam_3d_sagittal
+from healthivert_tpu_torch.cli import (
+    generation_eval_sagittal,
+    grad_cam_3d_sagittal,
+    location_json_local,
+    straighten_mask_3d,
+)
 from healthivert_tpu_torch.cli import train as train_cli
 from healthivert_tpu_torch.engine import infer3d
+from healthivert_tpu_torch.engine.train_loop import trace_kernel_records
 from healthivert_tpu_torch.engine.checkpoint import load_generator
 from healthivert_tpu_torch.models.pix2pix import Pix2PixConfig
 from healthivert_tpu_torch.ops.attention_cuda import attention_v2
 from healthivert_tpu_torch.utils import nifti
+from straighten_cohort import SIZE, write_raw_cohort
 
 pytestmark = pytest.mark.cuda
 
@@ -44,11 +60,18 @@ def cuda_device():
 
 
 @pytest.fixture
-def no_tf32(cuda_device):
+def tf32_defaults(cuda_device):
+    """PyTorch's own float32 settings before the test's CLIs (cuDNN
+    convolutions in TF32, CUDA matmuls not), put back after it."""
     saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
     yield cuda_device
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _assert_exact_float32():
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 def test_eval_3d_cli_equals_synthesize_volumes(cuda_device, tmp_path):
@@ -86,17 +109,15 @@ def test_train_cli_resume_continues(cuda_device, tmp_path):
     assert saved["step"] == 3
 
 
-def test_classifier_cli_card_equals_cpu(no_tf32, tmp_path):
+def test_classifier_cli_card_equals_cpu(tf32_defaults, tmp_path):
     cohort = write_cohort(str(tmp_path / "cohort"))
     flags = ["--dataroot", cohort, "--split", f"{cohort}/vertebra_data_local.json"]
     train = ["train", "--steps", "3", "--batch", "2"] + flags
     runs = {}
     for ids in ("0", "-1"):
-        args = grad_cam_3d_sagittal.parse_args(train + ["--out", str(tmp_path / f"cls{ids}"),
-                                                         "--gpu_ids", ids])
-        dev = torch.device("cuda" if ids == "0" else "cpu")
-        model = grad_cam_3d_sagittal.new_classifier(5, 0, dev)
-        runs[ids] = grad_cam_3d_sagittal.train(args, model, dev)
+        runs[ids] = grad_cam_3d_sagittal.main(train + ["--out", str(tmp_path / f"cls{ids}"),
+                                                       "--gpu_ids", ids])
+    _assert_exact_float32()
     np.testing.assert_allclose(runs["0"]["loss"], runs["-1"]["loss"], atol=1e-4)
     assert runs["0"]["vote_accuracy"] == runs["-1"]["vote_accuracy"]
     gen = {}
@@ -111,11 +132,12 @@ def test_classifier_cli_card_equals_cpu(no_tf32, tmp_path):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0, err_msg=pv)
 
 
-def test_generation_eval_card_equals_cpu(cuda_device, tmp_path):
+def test_generation_eval_card_equals_cpu(tf32_defaults, tmp_path):
     r = write_eval_cohort(tmp_path / "cohort")
     flags = ["--split", str(r / "split.json"), "--ct_folder", str(r / "CT"),
              "--label_folder", str(r / "label"), "--output_folder", str(r / "output_3d")]
     card = generation_eval_sagittal.main(flags + ["--result_folder", str(tmp_path / "card")])
+    _assert_exact_float32()
     cpu = generation_eval_sagittal.main(flags + ["--result_folder", str(tmp_path / "cpu"),
                                                  "--gpu_ids", "-1"])
     assert len(card) == len(cpu) == 2
@@ -124,3 +146,36 @@ def test_generation_eval_card_equals_cpu(cuda_device, tmp_path):
         assert c["count"] == p["count"] == 2
         for k in p:
             np.testing.assert_allclose(c[k], p[k], rtol=1e-4, err_msg=k)
+
+
+def test_straighten_cli_card_equals_cpu(tf32_defaults, tmp_path):
+    raw = write_raw_cohort(str(tmp_path / "raw"))
+    location_json_local.main(["--root", raw])
+    flags = ["--root", raw, "--size", *SIZE, "--reorient", "RAI"]
+    card = straighten_mask_3d.main(flags + ["--out", str(tmp_path / "card")])
+    _assert_exact_float32()
+    cpu = straighten_mask_3d.main(flags + ["--out", str(tmp_path / "cpu"), "--gpu_ids", "-1"])
+    assert card == cpu and len(card) == 14
+    for n in card:
+        for kind in ("CT", "label", "mask_2d"):
+            a = nifti.load(tmp_path / "card" / kind / f"{n}.nii.gz")
+            b = nifti.load(tmp_path / "cpu" / kind / f"{n}.nii.gz")
+            np.testing.assert_array_equal(a.affine, b.affine)
+            if kind == "CT":
+                np.testing.assert_allclose(a.data, b.data, rtol=0, atol=1e-3, err_msg=n)
+            else:
+                np.testing.assert_array_equal(a.data, b.data, err_msg=f"{kind}/{n}")
+
+
+def test_train_cli_profile_trace_holds_every_kernel(tf32_defaults, tmp_path):
+    """A trace of steps 2-3 (float32, the CLI's default): one step of
+    warm-up before it, not recorded, and a kernel record for every launch."""
+    cohort = write_cohort(str(tmp_path / "cohort"))
+    state, cfg = train_cli.main(["--dataroot", cohort, "--crop_size", "64", "--batch_size", "2",
+                                 "--ndf", "8", "--checkpoints_dir", str(tmp_path / "ck"),
+                                 "--load_npz", NPZ, "--max_steps", "5", "--profile_steps", "2,4"])
+    _assert_exact_float32()
+    assert cfg.compute_dtype == "float32" and state.step == 5
+    launches, lost = trace_kernel_records(
+        tmp_path / "ck" / "experiment_name" / "profile" / "trace.json")
+    assert launches > 100 and lost == 0

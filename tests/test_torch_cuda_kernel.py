@@ -50,6 +50,7 @@ from healthivert_tpu_torch.ops.attention_cuda import (
     attention_v2_reference,
     v1_patches,
 )
+from healthivert_tpu_torch.utils.device import float32_exact
 
 pytestmark = pytest.mark.cuda
 
@@ -61,8 +62,7 @@ BANDS = ["middle", "top", "bottom"]
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is False")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    float32_exact()
     return torch.device("cuda")
 
 

@@ -2,11 +2,13 @@
 reference hard-codes, ndf=8, 64 x 64, batch 2), for what the CLI parity
 tests do not reach: the --profile_steps window (flushed when the run ends
 first, flushed on divergence, opened when a resume lands inside it; its
-START,STOP parsing), the display_freq web gallery, and the evaluation's
+START,STOP parsing; the trace's launches without a kernel record counted),
+the display_freq web gallery, and the evaluation's
 -SSIM reaching the plateau policy. The same semantics as the JAX loop's
 (tests/test_cli_surfaces.py holds those).
 """
 
+import json
 import types
 
 import pytest
@@ -39,6 +41,26 @@ def test_profile_window_flushed_when_the_run_ends_first(tmp_path, capsys):
     run_training(_opt(tmp_path), max_steps=2, profile_steps=(0, 100), device="cpu")
     assert _trace(tmp_path).stat().st_size > 0
     assert "truncated at run end" in capsys.readouterr().out
+
+
+def test_profile_window_prints_its_kernel_records(tmp_path, capsys):
+    run_training(_opt(tmp_path), max_steps=3, profile_steps=(1, 2), device="cpu")
+    out = capsys.readouterr().out
+    assert _trace(tmp_path).exists() and "truncated" not in out
+    assert "0 kernel launches, 0 without a kernel record" in out  # no card: no launches
+
+
+def test_trace_kernel_records_matches_launches_by_correlation(tmp_path):
+    def ev(cat, name, corr):
+        return {"ph": "X", "cat": cat, "name": name, "args": {"correlation": corr}}
+
+    trace = tmp_path / "trace.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        ev("cuda_runtime", "cudaLaunchKernel", 1), ev("kernel", "gemm", 1),
+        ev("cuda_runtime", "cudaLaunchKernelExC", 2), ev("cuda_driver", "cuLaunchKernel", 3),
+        ev("kernel", "split", 3), ev("cuda_runtime", "cudaMemcpyAsync", 4),
+        ev("gpu_memcpy", "Memcpy HtoD", 4), {"ph": "M", "name": "process_name"}]}))
+    assert train_loop.trace_kernel_records(trace) == (3, 1)
 
 
 def test_profile_window_flushed_on_divergence(tmp_path, capsys):
