@@ -55,6 +55,29 @@ JSON line:
                 synthetic spine, vertebrae 19-21, bf16, batch 64; launches
                 on the tensor-core route must equal the synthesis's forward
                 dispatches
+ 9b. int8      int8 inference (--compute_dtype int8): (1) every distinct
+                int8 conv shape of the shipped generator at batch 64, 256 x
+                256, on random int8 data from a seed, the card route
+                (im2col of int8 views, torch._int_mm) bit-equal to its
+                plain version (float64 conv) on the card, with its ms, its
+                im2col's ms and share and the ms of cuDNN's bf16 conv of
+                the shape (CUDA events); (2) the shipped generator's int8
+                forward at batch 64 with dynamic and with static scales
+                (calibrated on the batch, the 99.5 % quantile): ms, slices/s
+                and peak bytes beside fwd_bf16's ms, one bf16 tensor-core
+                attention launch and 43 int8 convs a forward, finite
+                outputs; on a batch of 4 the card against the port's CPU
+                path, the bf16 forward's under the same gate (CARD_CPU_TOL:
+                maps mean 2.5e-2, binarised segs apart on 1e-4 of pixels,
+                heights 1e-3; the largest error reported), and, not gated,
+                int8 against bf16 on the batch of 64 (mean |delta
+                x_stage2|, fine-seg IoU); (3) synthesize_volumes(quant=
+                "auto") at batch 64 writing the scale store, then at batch
+                16 reading it: bit-equal volumes, attention launches equal
+                to dispatches (calibration included); (4) the 3D CLI and
+                the test CLI at --compute_dtype int8 on 3 patients and 4
+                images, with PyTorch's TF32 defaults before each and the
+                counts set to 0 just before each and read just after
  10. train_bf16 the training path: run_training with the shipped recipe
                 (checkpoints/pretrained_synthetic/train_opt.txt: batch 32,
                 bf16), 2 warm-up and 20 timed steps, each timed; one
@@ -215,6 +238,7 @@ from healthivert_tpu_torch.experiments.train_timing import read_recipe
 from healthivert_tpu_torch.models import pix2pix
 from healthivert_tpu_torch.models.pix2pix import Pix2PixConfig, generator_forward
 from healthivert_tpu_torch.ops import attention_cuda
+from healthivert_tpu_torch.ops import int8_conv as ic
 from healthivert_tpu_torch.ops.attention_cuda import (
     attention_scores_paste,
     attention_scores_paste_reference,
@@ -793,6 +817,7 @@ def phase_fwd_bf16(gen, cfg, batch_size=64, reps=5):
     emit("fwd_bf16", batch=batch_size, reps=reps, ms_per_forward=dt / reps * 1e3,
          slices_per_s=batch_size * reps / dt,
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    return dt / reps * 1e3
 
 
 def phase_profile_fwd(gen, cfg, batch_size=64):
@@ -941,6 +966,276 @@ def check_exact(what):
     """The precision a CLI leaves: TF32 off (utils.device.float32_exact)."""
     check(torch.backends.cudnn.allow_tf32 is False
           and torch.backends.cuda.matmul.allow_tf32 is False, f"{what}: TF32 left on")
+
+
+# bf16 and int8 forwards, card vs the port's CPU path, on a batch of 4 of
+# the shipped weights at 256 x 256, one gate for both: each map's mean abs
+# error, the binarised seg maps' disagreeing pixels (as a share), the
+# height fractions. The largest error is reported, not gated: cuDNN's bf16
+# convs, the elementwise kernels and the bf16 attention round otherwise
+# than the CPU, the trained coarse CT head amplifies that, and under int8 an
+# activation near a boundary of the int8 grid then quantizes one step apart
+# (seen on an H100: bf16 x_stage1 mean 9.9e-3, max 0.115; int8 x_stage1
+# mean 2.1e-2, x_stage2 max 0.29)
+CARD_CPU_TOL = {"maps_mean": 2.5e-2, "seg_disagree": 1e-4, "pred_h": 1e-3}
+INT8_CONVS = 43  # int8 convs of one generator forward (the 1-channel heads run bf16)
+INT8_CLI_PATIENTS = 3
+
+
+def int8_conv_shapes(gen):
+    """{(C, H, W, O, k, stride, padding, dilation): convs} of the int8
+    convs of one forward of `gen` at 256 x 256."""
+    from healthivert_tpu_torch.models.layers import SNConv
+
+    shapes, hooks = {}, []
+
+    def record(mod, args):
+        _, c, h, w = args[0].shape
+        o, _, k, _ = mod.weight.shape
+        key = (c, h, w, o, k, mod.stride, mod.padding, mod.dilation)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for m in gen.modules():
+        if isinstance(m, SNConv) and m.weight.shape[0] >= 8:
+            hooks.append(m.register_forward_pre_hook(record))
+    x = torch.zeros((1, 256, 256, 1), device="cuda", dtype=torch.bfloat16)
+    try:
+        with torch.no_grad():
+            gen(x, x, x, torch.zeros(1, device="cuda"))
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def int8_products(gen, batch=64, reps=10):
+    """The card route of every distinct int8 conv shape at `batch`: bit-equal
+    to the plain version on the card; its ms, its im2col's, cuDNN's bf16
+    conv's."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for (c, h, w, o, k, st, pd, dl), n in int8_conv_shapes(gen).items():
+        qx = torch.randint(-127, 128, (batch, c, h, w), generator=g, device="cuda",
+                           dtype=torch.int8).contiguous(memory_format=torch.channels_last)
+        qw = torch.randint(-127, 128, (o, c, k, k), generator=g, device="cuda", dtype=torch.int8)
+        got = ic.int8_conv2d(qx, qw, st, pd, dl)
+        want = ic.int8_conv2d_reference(qx, qw, st, pd, dl)
+        check(torch.equal(got, want), f"int8 product {(c, h, w, o, k, st, pd, dl)}: card route "
+                                      "differs from its plain version")
+        del got, want
+        kp = ic._round_up(k * k * c, 8)
+        xb = qx.to(torch.bfloat16)
+        wb = qw.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        fns = {"ms": lambda: ic.int8_conv2d_im2col(qx, qw, st, pd, dl),
+               "im2col_ms": lambda: ic.im2col(qx, k, st, pd, dl, kp),
+               "cudnn_bf16_ms": lambda: torch.nn.functional.conv2d(xb, wb, None, st, pd, dl)}
+        for fn in fns.values():
+            fn()
+        times = {name: time_events(fn, reps) for name, fn in fns.items()}
+        rows.append(dict(c=c, h=h, w=w, o=o, k=k, stride=st, padding=pd, dilation=dl, convs=n,
+                         im2col_bytes=batch * ic.out_size(h, k, st, pd, dl)
+                         * ic.out_size(w, k, st, pd, dl) * kp,
+                         im2col_share=times["im2col_ms"] / times["ms"], **times))
+        del qx, qw, xb, wb
+    return rows
+
+
+def _iou(a, b):
+    a, b = a > 0.5, b > 0.5
+    return float((a & b).sum()) / max(1, int((a | b).sum()))
+
+
+def phase_int8(gen_bf16, cfg_bf16, bf16_ms, batch_size=64, reps=5):
+    """int8 inference: the product at every shape, the forward (dynamic and
+    static scales) with its gates, and the 3D synthesis through the scale
+    store; then the CLIs (phase_int8_cli)."""
+    from healthivert_tpu_torch.models.pix2pix import INT8_CALIB_PERCENTILE, calibrate_int8
+
+    t_phase = time.perf_counter()
+    float32_exact()
+    cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="int8")
+    gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
+    products = int8_products(gen, batch_size)
+    per_forward = {k: sum(r[k] * r["convs"] for r in products)
+                   for k in ("ms", "im2col_ms", "cudnn_bf16_ms")}
+
+    host = SyntheticDataset(batch_size=batch_size, seed=0, n_volumes=2).sample_batch()
+    batch = to_device(host, "cuda")
+    t0 = time.perf_counter()
+    quant = calibrate_int8(gen, [batch], cfg, percentile=INT8_CALIB_PERCENTILE)
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    check(len(quant) == INT8_CONVS, f"int8: {len(quant)} calibrated convs")
+    fwd = {}
+    with torch.no_grad():
+        for mode, q in (("dynamic", None), ("static", quant)):
+            for _ in range(2):  # warm-up
+                generator_forward(gen, batch, cfg, g_quant=q)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            a0, c0 = attention_v2.tc_launches, ic.int8_conv2d.launches
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = generator_forward(gen, batch, cfg, g_quant=q)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            check(attention_v2.tc_launches - a0 == reps,
+                  f"int8 {mode} forward: {attention_v2.tc_launches - a0} tensor-core attention "
+                  f"launches for {reps} forwards")
+            check(ic.int8_conv2d.launches - c0 == INT8_CONVS * reps,
+                  f"int8 {mode} forward: {ic.int8_conv2d.launches - c0} int8 convs")
+            for key in ("fake_b", "fine_seg_bin", "pred2_h"):
+                check(bool(torch.isfinite(out[key].float()).all()), f"int8 {mode}: {key} not finite")
+            fwd[mode] = dict(ms_per_forward=dt / reps * 1e3, slices_per_s=batch_size * reps / dt,
+                             max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                             out=out)
+        ref = generator_forward(gen_bf16, batch, cfg_bf16)
+    vs_bf16 = {mode: dict(
+        mean_abs_dx_stage2=float((f["out"]["gen"].x_stage2.float()
+                                  - ref["gen"].x_stage2.float()).abs().mean()),
+        fine_seg_iou=_iou(f["out"]["gen"].fine_seg, ref["gen"].fine_seg))
+        for mode, f in fwd.items()}
+    for f in fwd.values():
+        del f["out"]
+    del ref, out
+
+    # card vs the port's CPU path on a batch of 4, bf16 and int8 with the
+    # same scales on both
+    small = {k: v[:4] for k, v in host.items()}
+    card_cpu = {}
+    for mode, g, c, q in (("bf16", gen_bf16, cfg_bf16, None), ("int8_dynamic", gen, cfg, None),
+                          ("int8_static", gen, cfg, quant)):
+        card_cpu[mode] = card_vs_cpu(g, c, small, q)
+    del small
+    synth = int8_synth3d(gen, cfg, batch_size)
+    cli = phase_int8_cli()
+    emit("int8", batch=batch_size, convs_per_forward=INT8_CONVS,
+         products=products, per_forward_ms=per_forward,
+         im2col_share=per_forward["im2col_ms"] / per_forward["ms"],
+         int8_convs_vs_cudnn_bf16=per_forward["ms"] / per_forward["cudnn_bf16_ms"],
+         calibrate_ms=calib_ms, forward=fwd, fwd_bf16_ms=bf16_ms,
+         int8_over_bf16={m: f["ms_per_forward"] / bf16_ms for m, f in fwd.items()},
+         card_vs_cpu_batch4=card_cpu, tolerances=CARD_CPU_TOL, vs_bf16_not_gated=vs_bf16,
+         synth3d=synth, cli=cli, phase_s=time.perf_counter() - t_phase)
+
+
+def card_vs_cpu(gen, cfg, host, quant=None):
+    """The forward of `gen` on the card against the same weights on the
+    CPU, on the numpy batch `host`, under CARD_CPU_TOL."""
+    cpu = load_generator(PRETRAINED_NPZ, cfg, device="cpu")
+    with torch.no_grad():
+        got = generator_forward(gen, to_device(host, "cuda"), cfg, g_quant=quant)
+        want = generator_forward(cpu, to_device(host, "cpu"), cfg,
+                                 g_quant=None if quant is None else
+                                 {k: v.cpu() for k, v in quant.items()})
+    what = f"{cfg.compute_dtype}{'' if quant is None else ' static'} card vs CPU"
+    errs = {}
+    for name in ("coarse_seg", "fine_seg", "x_stage1", "x_stage2"):
+        a, b = getattr(got["gen"], name).float().cpu(), getattr(want["gen"], name).float()
+        e = (a - b).abs()
+        errs[name] = {"mean": float(e.mean()), "max": float(e.max()),
+                      "pixels_over_3e-2": int((e > 3e-2).sum())}
+        check(errs[name]["mean"] <= CARD_CPU_TOL["maps_mean"], f"{what} {name}: {errs[name]}")
+        if "seg" in name:
+            errs[name]["disagree"] = float(((a > 0.5) != (b > 0.5)).float().mean())
+            check(errs[name]["disagree"] <= CARD_CPU_TOL["seg_disagree"],
+                  f"{what} {name}: {errs[name]}")
+    for name in ("pred1_h", "pred2_h"):
+        errs[name] = max_err(getattr(got["gen"], name), getattr(want["gen"], name))
+        check(errs[name] <= CARD_CPU_TOL["pred_h"], f"{what} {name}: {errs[name]}")
+    return errs
+
+
+def int8_synth3d(gen, cfg, batch_size, vert_ids=(19, 20, 21)):
+    """synthesize_volumes(quant="auto") at batch_size writing the scale
+    store, then at batch 16 reading it: bit-equal volumes."""
+    ct, labels, cam = make_spine_volume(np.random.default_rng(0), fractured={20: 0.6})
+    volumes = [(ct, labels, v, cam) for v in vert_ids]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        store = Path(tmp) / "int8_quant.pt"
+        for b in (batch_size, 16):
+            attention_v2.launches = attention_v2.tc_launches = 0
+            infer3d._forward.dispatches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = infer3d.synthesize_volumes(gen, cfg, volumes, batch_size=b, quant="auto",
+                                             quant_store=str(store), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+            check(launches > 0 and launches == dispatches == attention_v2.launches,
+                  f"int8 synthesis at batch {b}: tensor-core launches {launches}, all "
+                  f"{attention_v2.launches}, dispatches {dispatches}")
+            check(store.is_file(), "int8 synthesis wrote no scale store")
+            runs.append(dict(batch=b, wall_s=wall, dispatches=dispatches, launches=launches,
+                             store_mtime_ns=store.stat().st_mtime_ns, results=res))
+    first, second = runs
+    check(first["store_mtime_ns"] == second["store_mtime_ns"], "int8 store rewritten")
+    for (a_ct, a_lb), (b_ct, b_lb), v in zip(first["results"], second["results"], vert_ids):
+        check(np.array_equal(a_ct, b_ct) and np.array_equal(a_lb, b_lb),
+              f"int8 synthesis: vertebra {v} differs between batch {batch_size} and 16")
+        check(bool(np.isfinite(a_ct).all()), f"int8 synthesis: vertebra {v} not finite")
+    return [{k: r[k] for k in ("batch", "wall_s", "dispatches", "launches")} for r in runs]
+
+
+@in_scratch
+def phase_int8_cli(tmp, quiet):
+    """The 3D CLI at --compute_dtype int8 (shipped weights, --slice_batch
+    64, static scales through the store) on INT8_CLI_PATIENTS patients and
+    the test CLI at int8 on 4 images, each with PyTorch's TF32 defaults
+    before it and the counts set to 0 just before it and read just after."""
+    from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
+    from healthivert_tpu_torch.cli import test as test_cli
+    from healthivert_tpu_torch.utils import nifti
+
+    data = tmp / "cohort"
+    write_cli_cohort(data, patients=INT8_CLI_PATIENTS)
+    common = ["--dataroot", str(data), "--cam_dir", str(data / "CAM"), "--checkpoints_dir",
+              str(tmp / "ck"), "--load_npz", str(PRETRAINED_NPZ), "--compute_dtype", "int8"]
+    attention_v2.launches = attention_v2.tc_launches = 0
+    infer3d._forward.dispatches = 0
+    ic.int8_conv2d.launches = 0
+    tf32_defaults()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with quiet:
+        stats = e3_cli.main(common + ["--name", "e3", "--results_dir", str(tmp / "out3d"),
+                                      "--slice_batch", "64"])
+    torch.cuda.synchronize()
+    e3_wall = time.perf_counter() - t0
+    check_exact("int8 3D CLI")
+    launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+    check(launches > 0 and launches == dispatches == attention_v2.launches
+          and ic.int8_conv2d.launches == INT8_CONVS * dispatches,
+          f"int8 3D CLI: tensor-core launches {launches}, dispatches {dispatches}, int8 convs "
+          f"{ic.int8_conv2d.launches}")
+    check((tmp / "ck" / "e3" / "int8_quant.pt").is_file(), "int8 3D CLI wrote no scale store")
+    check(len(stats["patients"]) == INT8_CLI_PATIENTS, f"int8 3D CLI: {stats['patients']}")
+    for f in sorted((tmp / "out3d" / "CT_fake").iterdir()):
+        check(bool(np.isfinite(nifti.load(f).data).all()), f"int8 3D CLI {f.name}: not finite")
+
+    attention_v2.launches = attention_v2.tc_launches = 0
+    ic.int8_conv2d.launches = 0
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with quiet:
+        test_cli.main(common + ["--name", "t8", "--results_dir", str(tmp / "res"),
+                                "--num_test", "4"])
+    torch.cuda.synchronize()
+    test_wall = time.perf_counter() - t0
+    check_exact("int8 test CLI")
+    # four images and the calibration forward on the first
+    check(attention_v2.tc_launches == attention_v2.launches == 5
+          and ic.int8_conv2d.launches == 5 * INT8_CONVS,
+          f"int8 test CLI: {attention_v2.tc_launches} attention launches, "
+          f"{ic.int8_conv2d.launches} int8 convs")
+    pngs = list((tmp / "res" / "t8" / "test_latest" / "images").glob("*.png"))
+    check(len(pngs) == 4 * 7, f"int8 test CLI: {len(pngs)} PNGs")
+    return dict(eval_3d=dict(patients=INT8_CLI_PATIENTS, vertebrae=len(CLI_VERTS), wall_s=e3_wall,
+                             patient_s=stats["patients"], dispatches=dispatches,
+                             launches=launches),
+                test=dict(images=4, wall_s=test_wall, launches=attention_v2.tc_launches))
 
 
 # the train CLI at its default dtype, float32: steps, and the --profile_steps
@@ -2086,8 +2381,9 @@ def main():
     phase_grad_f32()
     cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="bfloat16")
     gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
-    phase_fwd_bf16(gen, cfg)
+    bf16_ms = phase_fwd_bf16(gen, cfg)
     launches = phase_synth3d(gen, cfg)
+    phase_int8(gen, cfg, bf16_ms)
     bwd_launches = phase_train("bfloat16", timed=20)
     f32_launches = phase_train("float32", timed=10)
     phase_cli()

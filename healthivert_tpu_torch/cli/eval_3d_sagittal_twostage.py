@@ -12,6 +12,11 @@ slices batched per pass, a patient's vertebrae sharing the passes) and
 writes CT_fake/ and label_fake/ NIfTIs with the input's affine. Outputs
 that exist are skipped. Runs on the card of --gpu_ids (default 0);
 --gpu_ids -1 runs on the CPU.
+
+--compute_dtype int8 --int8_calib auto (the default calibration) calibrates
+static int8 scales on the first batch and keeps them in
+{checkpoints_dir}/{name}/int8_quant.pt, which later runs reuse;
+--int8_calib dynamic takes per-sample scales.
 """
 
 from __future__ import annotations
@@ -32,6 +37,8 @@ from ..models.pix2pix import Pix2PixConfig
 from ..utils import nifti
 from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
+
+QUANT_STORE = "int8_quant.pt"  # the int8 scale store in {checkpoints_dir}/{name}
 
 
 def pre_parser() -> argparse.ArgumentParser:
@@ -59,6 +66,12 @@ def main(argv=None):
     dev = opt.device
     cfg = Pix2PixConfig(ngf=16, image_size=opt.crop_size, compute_dtype=opt.compute_dtype)
     gen = ckpt.generator_for_cli(opt, cfg, dev, load_npz=ns.load_npz)
+    # int8: static scales by default, persisted beside the checkpoint so that
+    # every later run (any --slice_batch or grouping) reuses them
+    static = cfg.compute_dtype == "int8" and opt.int8_calib == "auto"
+    quant = dict(quant="auto" if static else None,
+                 quant_store=os.path.join(opt.checkpoints_dir, opt.name, QUANT_STORE)
+                 if static else None)
 
     ct_dir = os.path.join(opt.dataroot, "CT")
     out_ct = os.path.join(opt.results_dir, "CT_fake")
@@ -89,7 +102,7 @@ def main(argv=None):
             t0 = time.perf_counter()
             vols, imgs = load_group(io, opt, group)
             t_read = time.perf_counter() - t0
-            results = synthesize_group(gen, cfg, vols, axis, ns.slice_batch, dev)
+            results = synthesize_group(gen, cfg, vols, axis, ns.slice_batch, dev, **quant)
             for w in writes:  # the previous patient's files, before the next ones
                 stats["io_write_s"] += w.result()
             writes = [io.submit(_save, r, img, out_ct, out_lb, fname)
@@ -126,7 +139,7 @@ def load_group(io, opt, group):
     return [v for v, _ in loaded], [img for _, img in loaded]
 
 
-def synthesize_group(gen, cfg, vols, axis, slice_batch, dev):
+def synthesize_group(gen, cfg, vols, axis, slice_batch, dev, quant=None, quant_store=None):
     """synthesize_volumes over one group. It stacks slices across volumes,
     so all must share the slice shape along `axis`; a group with mismatched
     shapes runs as per-shape sub-groups."""
@@ -142,7 +155,7 @@ def synthesize_group(gen, cfg, vols, axis, slice_batch, dev):
     for idxs in by_shape.values():
         sub = synthesize_volumes(gen, cfg, [vols[i] for i in idxs], batch_size=slice_batch,
                                  use_bf16=cfg.compute_dtype != "float32", axis=axis,
-                                 device=dev)
+                                 quant=quant, quant_store=quant_store, device=dev)
         for i, r in zip(idxs, sub):
             results[i] = r
     return results

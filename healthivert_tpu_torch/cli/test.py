@@ -7,6 +7,8 @@ index.html, with the attention's offset flow as an 8x upsampled image).
         [--load_npz weights.npz]
 
 Runs on the card of --gpu_ids (default 0); --gpu_ids -1 runs on the CPU.
+--compute_dtype int8 calibrates static int8 scales on the first image
+(--int8_calib auto, the default) or takes per-sample ones (dynamic).
 """
 
 from __future__ import annotations
@@ -21,7 +23,12 @@ from ..data import create_dataset
 from ..data.prefetch import to_device
 from ..engine import checkpoint as ckpt
 from ..engine.visualizer import HTMLGallery, save_images
-from ..models.pix2pix import Pix2PixConfig, generator_forward
+from ..models.pix2pix import (
+    INT8_CALIB_PERCENTILE,
+    Pix2PixConfig,
+    calibrate_int8,
+    generator_forward,
+)
 from ..ops.flow_viz import offsets_to_flow_image
 from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
@@ -52,12 +59,16 @@ def main(argv=None):
     gallery = HTMLGallery(web_dir, f"Experiment = {opt.name}, Phase = {opt.phase}, "
                                    f"Epoch = {opt.epoch}")
     host = lambda t: t[0].float().cpu().numpy()
+    g_quant = None
     for i, batch in enumerate(dataset):
         if i >= opt.num_test:
             break
         tb = to_device(batch, opt.device)
+        if cfg.compute_dtype == "int8" and i == 0 and opt.int8_calib == "auto":
+            # static per-tensor activation scales from the first batch
+            g_quant = calibrate_int8(gen, [tb], cfg, percentile=INT8_CALIB_PERCENTILE)
         with torch.no_grad():
-            f = generator_forward(gen, tb, cfg)
+            f = generator_forward(gen, tb, cfg, g_quant=g_quant)
         visuals = {
             "real_A": host(tb["context"]),
             "fake_B": host(f["fake_b"]),

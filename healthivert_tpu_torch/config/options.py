@@ -1,8 +1,9 @@
 """Layered CLI option system of the port's entry points.
 
 A copy of healthivert_tpu/config/options.py:21-292: the same flags,
-defaults and help (two help texts name the port's own means: --load_pth is
-read with torch.load, --profile_steps writes a torch.profiler trace), the
+defaults and help (three help texts name the port's own means: --load_pth
+is read with torch.load, --profile_steps writes a torch.profiler trace,
+--int8_calib names the port's int8 scale store), the
 plugin flag injection of the model and dataset
 registries, and the resolved-options dump to
 {checkpoints_dir}/{name}/{phase}_opt.txt, byte for byte as the JAX package
@@ -81,20 +82,22 @@ def _base_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     parser.add_argument("--compute_dtype", type=str, default="float32",
                         choices=["float32", "bfloat16", "int8"],
                         help="int8 = post-training-quantized generator convs "
-                             "(inference only; int8 MXU)")
+                             "(inference only; int8 x int8 products summed "
+                             "in int32)")
     parser.add_argument("--int8_calib", type=str, default="auto",
                         choices=["auto", "dynamic"],
                         help="int8 activation scales: 'auto' calibrates "
-                             "static per-tensor percentile scales (default "
+                             "static per-tensor percentile scales (the "
                              "99.5th; see pix2pix.INT8_CALIB_PERCENTILE) "
-                             "from the first batch (the mode that beats "
-                             "bf16) — eval_3d persists them to "
-                             "{checkpoints_dir}/{name}/int8_quant.msgpack "
-                             "and reuses the file, so outputs don't depend "
-                             "on batch grouping/--slice_batch (delete it to "
-                             "recalibrate); 'dynamic' keeps per-sample "
+                             "from the first batch; eval_3d persists them to "
+                             "{checkpoints_dir}/{name}/int8_quant.pt, "
+                             "fingerprinted to the weights, and reuses the "
+                             "file, so outputs don't depend on batch "
+                             "grouping/--slice_batch (delete it to "
+                             "recalibrate; the JAX package's .msgpack store "
+                             "is not read); 'dynamic' keeps per-sample "
                              "absmax scales (batch-invariant by "
-                             "construction, ~25%% slower)")
+                             "construction)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--gan_head_preupdate",
                         action=argparse.BooleanOptionalAction, default=True,
@@ -228,8 +231,6 @@ def check_ported(opt) -> None:
     """Raise NotImplementedError for a flag whose feature the port lacks,
     naming where ROADMAP.md queues it."""
     unported = []
-    if getattr(opt, "compute_dtype", "float32") == "int8":
-        unported.append("--compute_dtype int8 (ROADMAP.md section 1 item 6, int8 inference)")
     if _mesh_devices(getattr(opt, "mesh", "data:-1")) > 1:
         unported.append(f"--mesh {opt.mesh} over several devices (ROADMAP.md section 1 "
                         "item 7, multi-GPU)")

@@ -1,6 +1,6 @@
 """Iterative two-stage 3D synthesis: heal the neighbours, then the target.
 
-Counterpart of healthivert_tpu/engine/infer3d.py:46-288 and :398-588. Each
+Counterpart of healthivert_tpu/engine/infer3d.py:46-588. Each
 of the three passes (upper neighbour, lower neighbour on the pass-1 output,
 target on the twice-healed context) runs as batched generator forwards over
 all slices of the vertebrae's central 4/5 z-range, shared across volumes.
@@ -13,13 +13,25 @@ target pass only inside its "lower neighbour missing" branch, so slices
 whose lower neighbour exists reuse a stale output; here the target pass
 always runs.
 
-`mesh=` (sharding over several cards) and `quant=` (int8) are not ported in
-this slice and raise NotImplementedError.
+int8 (cfg.compute_dtype "int8"): `quant="auto"` calibrates static
+activation scales once, on the call's first real batch, and keeps them for
+all three passes; with `quant_store` they persist beside the checkpoint in
+the port's own format (`torch.save` of {"meta", "quant"}, fingerprinted to
+the generator's weights, written atomically), so that later calls at any
+batch size give bit-equal volumes. The JAX package's `.msgpack` store is not
+read: its fingerprint hashes the flax tree's paths, this one the port's
+state-dict keys.
+
+`mesh=` (sharding over several cards) is not ported in this slice and
+raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -27,7 +39,14 @@ import torch
 
 from ..data.sampler import remove_small_cc
 from ..models.generator import Generator
-from ..models.pix2pix import Pix2PixConfig
+from ..models.layers import INT8, int8_scope
+from ..models.pix2pix import (
+    INT8_CALIB_PERCENTILE,
+    Pix2PixConfig,
+    calib_to_quant,
+    calibrate_one,
+    quant_scales,
+)
 from ..utils.device import resolve_device
 
 MAXHEIGHT = 40
@@ -67,12 +86,25 @@ def _prep_inputs(ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, use_bf16):
     return context, mask, cam
 
 
-def _forward_impl(gen, ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, ratio, w0,
-                  use_bf16=True, win=WINDOW):
+def _calibrate_fwd(gen, ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, ratio,
+                   use_bf16=True):
+    """One calibration forward of the int8 generator over prepped pass
+    inputs (counted in `_forward.dispatches`): its calib tree
+    (models.pix2pix.calib_to_quant)."""
+    _forward.dispatches += 1
     context, mask, cam = _prep_inputs(
         ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, use_bf16
     )
-    out = gen(context, mask, 1.0 - cam, ratio)
+    return calibrate_one(gen, context, mask, 1.0 - cam, ratio)
+
+
+def _forward_impl(gen, ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, ratio, w0,
+                  scales=None, use_bf16=True, win=WINDOW):
+    context, mask, cam = _prep_inputs(
+        ct_u8, cam_stack, zidx, x1, x2, min_x, max_x, use_bf16
+    )
+    with int8_scope(scales=scales):
+        out = gen(context, mask, 1.0 - cam, ratio)
     # quantize on the device and crop to the WINDOW rows starting at w0:
     # only those rows are ever pasted back
     fake_u8 = torch.round((out.x_stage2.float() + 1.0) * 127.5).to(torch.uint8)
@@ -160,8 +192,10 @@ def _reassemble(geo, x_stage2_win, fine_seg_win, pred_h, ct_sl, label_sl, vert_i
 _INT_KEYS = ("x1", "x2", "min_x", "max_x", "w0")
 
 
-def _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size):
-    """Stack one dispatch's worth of job arrays (padded by repetition)."""
+def _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size, keys=_INT_KEYS):
+    """Stack one dispatch's worth of job arrays (padded by repetition).
+    Calibration runs before _run_pass sets "w0", so it passes keys without
+    it."""
     chunk = jobs[i0 : i0 + batch_size]
     pad = batch_size - len(chunk)
     rep = lambda key: [j[key] for j in chunk] + [chunk[-1][key]] * pad
@@ -171,15 +205,16 @@ def _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size):
         list(job_zidx[i0 : i0 + len(chunk)])
         + [job_zidx[i0 + len(chunk) - 1]] * pad, np.int64
     )
-    ints = {k: np.array(rep(k), np.int64) for k in _INT_KEYS}
+    ints = {k: np.array(rep(k), np.int64) for k in keys}
     return chunk, ct, rat, zidx, ints
 
 
 def _run_pass(gen, jobs, ratios, cam_stack, job_zidx, batch_size=32,
-              use_bf16=True):
+              use_bf16=True, g_quant=None):
     """Batched forwards over a list of geometry jobs; returns per-job
     outputs. cam_stack is a device-resident (NZ, H, W) uint8 tensor;
-    job_zidx maps each job to its stack row."""
+    job_zidx maps each job to its stack row; g_quant, a quant tree of
+    static int8 scales."""
     if not jobs:
         return []
     dev = cam_stack.device
@@ -189,6 +224,7 @@ def _run_pass(gen, jobs, ratios, cam_stack, job_zidx, batch_size=32,
     win = max(WINDOW, -(-need // 32) * 32)
     for j in jobs:
         j["w0"] = min(max(j["x1"] - 20, 0), max(j["width"] - win, 0))
+    scales = quant_scales(gen, g_quant)
     outs = []
     for i0 in range(0, len(jobs), batch_size):
         chunk, ct, rat, zidx, ints = _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size)
@@ -196,7 +232,7 @@ def _run_pass(gen, jobs, ratios, cam_stack, job_zidx, batch_size=32,
         x2_, seg, ph = _forward(
             gen, t(ct), cam_stack, t(zidx), t(ints["x1"]), t(ints["x2"]),
             t(ints["min_x"]), t(ints["max_x"]), t(rat), t(ints["w0"]),
-            use_bf16=use_bf16, win=win,
+            scales=scales, use_bf16=use_bf16, win=win,
         )
         x2_, seg, ph = x2_.cpu().numpy(), seg.cpu().numpy(), ph.cpu().numpy()
         for k in range(len(chunk)):
@@ -216,6 +252,69 @@ def _cam_bucket(n: int) -> int:
     return -(-n // 64) * 64
 
 
+def _params_reduce(gen: Generator):
+    """Sum and sum of squares over every tensor of the generator's state
+    dict, in float32 on its device, as two Python floats."""
+    flat = torch.cat([t.detach().float().reshape(-1) for t in gen.state_dict().values()])
+    return float(flat.sum()), float((flat * flat).sum())
+
+
+def _quant_meta(gen: Generator):
+    """Fingerprint tying a stored quant tree to the weights: a hash of the
+    state dict's keys, shapes and dtypes, its sum and sum of squares
+    (compared with a relative tolerance: another device may sum in another
+    order, while retrained weights differ by far more) and the calibration
+    percentile."""
+    h = hashlib.blake2b(digest_size=16)
+    for k, t in gen.state_dict().items():
+        h.update(k.encode())
+        h.update(str(tuple(t.shape)).encode())
+        h.update(str(t.dtype).encode())
+    tot, sq = _params_reduce(gen)
+    return {"struct": h.hexdigest(), "sum": tot, "sq": sq,
+            "percentile": float(INT8_CALIB_PERCENTILE)}
+
+
+def _load_quant_store(path, gen: Generator):
+    """The stored quant tree, or None (then the caller recalibrates, with a
+    warning) when the file is unreadable or foreign (a JAX .msgpack among
+    them), has no fingerprint, or was calibrated for other weights or
+    another percentile."""
+    try:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:  # a truncated write, a foreign format
+        warnings.warn(f"int8 quant store {path} unreadable ({e!r}); recalibrating")
+        return None
+    if not (isinstance(blob, dict) and isinstance(blob.get("meta"), dict)
+            and isinstance(blob.get("quant"), dict)
+            and all(isinstance(v, torch.Tensor) for v in blob["quant"].values())):
+        warnings.warn(f"int8 quant store {path} has no weight fingerprint; recalibrating")
+        return None
+    meta, want = blob["meta"], _quant_meta(gen)
+    ok = (
+        str(meta.get("struct")) == want["struct"]
+        and float(meta.get("percentile", -1)) == want["percentile"]
+        and np.isclose(float(meta.get("sum", np.inf)), want["sum"], rtol=1e-4, atol=1e-6)
+        and np.isclose(float(meta.get("sq", np.inf)), want["sq"], rtol=1e-4, atol=1e-6)
+    )
+    if not ok:
+        warnings.warn(f"int8 quant store {path} was calibrated for different weights or "
+                      "percentile; recalibrating (the store will be rewritten)")
+        return None
+    return blob["quant"]
+
+
+def _save_quant_store(path, g_quant, gen: Generator):
+    """Store the quant tree with its weight fingerprint, atomically (a temp
+    file, then os.replace), so that a cut write leaves no truncated store."""
+    d = os.path.dirname(path) or "."
+    os.makedirs(d, exist_ok=True)
+    blob = {"meta": _quant_meta(gen), "quant": {k: v.cpu() for k, v in g_quant.items()}}
+    tmp = os.path.join(d, f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    torch.save(blob, tmp)
+    os.replace(tmp, path)
+
+
 def synthesize_volumes(
     gen: Generator,
     cfg: Pix2PixConfig,
@@ -225,26 +324,34 @@ def synthesize_volumes(
     axis: int = 2,
     mesh=None,
     quant=None,
+    quant_store=None,
     device="cuda",
 ):
     """Batched multi-vertebra synthesis: the three passes are shared across
     all volumes (vertebrae are independent).
 
-    gen: a `Generator` on `device` whose conv dtype matches use_bf16
-    (bfloat16 for True, None for False). volumes: sequence of (ct_vol,
-    label_vol, vert_id, cam_vol-or-None), all with the same slice shape
-    along `axis`. Returns a list of (ct_fake, label_fake) pairs in input
-    order."""
+    gen: a `Generator` on `device` whose conv dtype matches the mode:
+    "int8" under cfg.compute_dtype "int8", else bfloat16 for use_bf16 and
+    None without. volumes: sequence of (ct_vol, label_vol, vert_id,
+    cam_vol-or-None), all with the same slice shape along `axis`. Returns a
+    list of (ct_fake, label_fake) pairs in input order.
+
+    quant (int8 only): None, per-sample dynamic activation scales; "auto",
+    static scales calibrated on this call's first real batch (its first
+    pass with jobs); or a quant tree (models.pix2pix.calibrate_int8).
+    quant_store (with "auto"): a file of the port's quant store. If it
+    holds scales for these weights they are used and no calibration runs;
+    otherwise the scales calibrated here are written there."""
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-GPU sharding) is not ported yet")
-    if quant is not None or cfg.compute_dtype not in ("float32", "bfloat16"):
-        raise NotImplementedError("int8 inference (quant=) is not ported yet")
+    if quant is not None and cfg.compute_dtype != "int8":
+        raise ValueError("quant= is only meaningful with compute_dtype='int8'")
     dev = resolve_device(device)
-    want = torch.bfloat16 if use_bf16 else None
+    want = INT8 if cfg.compute_dtype == "int8" else (torch.bfloat16 if use_bf16 else None)
     if gen.dtype != want:
         raise ValueError(
-            f"use_bf16={use_bf16} needs a generator built with dtype={want}, "
-            f"got {gen.dtype}"
+            f"compute_dtype={cfg.compute_dtype!r}, use_bf16={use_bf16} needs a generator "
+            f"built with dtype={want}, got {gen.dtype}"
         )
     param_dev = next(gen.parameters()).device
     if param_dev.type != dev.type:
@@ -297,6 +404,12 @@ def synthesize_volumes(
         np.pad(cams, ((0, bucket - row_off), (0, 0), (0, 0)))
     ).to(dev)
 
+    g_quant = None if quant == "auto" else quant
+    if quant == "auto" and quant_store and os.path.exists(quant_store):
+        g_quant = _load_quant_store(quant_store, gen)
+    if g_quant is not None:
+        g_quant = {k: v.to(dev) for k, v in g_quant.items()}
+
     # three passes: upper neighbour, lower neighbour, target; jobs from
     # every volume share the dispatches
     for which, nb in (("upper", -1), ("lower", +1), ("target", 0)):
@@ -323,7 +436,21 @@ def synthesize_volumes(
                 job_refs.append((prep, z, vid))
                 job_ratio.append(prep["ratios"][z])
                 job_rows.append(prep["stack_row"][z])
-        outs = _run_pass(gen, jobs, job_ratio, cam_stack, job_rows, batch_size, use_bf16)
+        if quant == "auto" and g_quant is None and jobs:
+            # one calibration forward on this call's first real batch
+            _, ct, rat, zidx, ints = _chunk_arrays(
+                jobs, job_ratio, job_rows, 0, min(batch_size, len(jobs)),
+                keys=("x1", "x2", "min_x", "max_x"),
+            )
+            t = lambda a: torch.from_numpy(a).to(dev)
+            calib = _calibrate_fwd(gen, t(ct), cam_stack, t(zidx), t(ints["x1"]),
+                                   t(ints["x2"]), t(ints["min_x"]), t(ints["max_x"]),
+                                   t(rat), use_bf16)
+            g_quant = calib_to_quant(calib, percentile=INT8_CALIB_PERCENTILE)
+            if quant_store:
+                _save_quant_store(quant_store, g_quant, gen)
+        outs = _run_pass(gen, jobs, job_ratio, cam_stack, job_rows, batch_size, use_bf16,
+                         g_quant)
         for geo, (prep, z, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
             ct_new, lb_new, _ = _reassemble(
                 geo, x2_, seg, ph, prep["ct_state"][z], prep["lb_state"][z], vid
@@ -359,6 +486,7 @@ def synthesize_volume(
     axis: int = 2,
     mesh=None,
     quant=None,
+    quant_store=None,
     device="cuda",
 ):
     """Synthesize the pseudo-healthy target vertebra across all central
@@ -367,5 +495,5 @@ def synthesize_volume(
     return synthesize_volumes(
         gen, cfg, [(ct_vol, label_vol, vert_id, cam_vol)],
         batch_size=batch_size, use_bf16=use_bf16, axis=axis, mesh=mesh,
-        quant=quant, device=device,
+        quant=quant, quant_store=quant_store, device=device,
     )[0]

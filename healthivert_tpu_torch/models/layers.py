@@ -1,10 +1,10 @@
 """Spectrally normalized conv blocks of the generator, and the initialisers
 of the discriminators.
 
-Counterpart of healthivert_tpu/models/layers.py (`_ACT` :23-30, `SNConv`
-:37-109, `Conv2dBlock` :194-222, `normal_init`/`weight_init` :225-266),
-float32 and bfloat16 only; the int8 path (:111-191) is not ported yet.
-Modules run NCHW inside; the weight is OIHW.
+Counterpart of healthivert_tpu/models/layers.py (`CALIB_PERCENTILES` :21,
+`_ACT` :23-30, `SNConv` :37-109 with its int8 path `_int8_conv` :111-191,
+`Conv2dBlock` :194-222, `normal_init`/`weight_init` :225-266). Modules run
+NCHW inside; the weight is OIHW.
 
 Spectral norm follows the JAX package, not torch.nn.utils.spectral_norm:
 with the stored u, v = l2(W^T u), u_new = l2(W v), sigma = u_new . (W v),
@@ -15,15 +15,31 @@ applies its generator with update_sn=False): training advances it
 explicitly with `SNConv.power_iteration`. Without autograd the normalized
 kernel is computed once per weight and reused until the weight or u
 changes.
+
+int8 (dtype="int8", inference only): a conv with at least 8 outputs
+quantizes its spectrally normalised weight per output channel and its input
+per sample (or with a static scale), sums int8 products in int32
+(`ops.int8_conv.int8_conv2d`), and returns bf16; a narrower one (the
+1-channel heads) runs bf16. `int8_scope` sets static activation scales and
+collects calibration statistics for the convs that run inside it.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..ops.int8_conv import int8_conv2d
+
+# the quantile grid of the int8 calibration statistics (act_pq); a static
+# scale picks one of them (pix2pix.calib_to_quant)
+CALIB_PERCENTILES = (99.0, 99.5, 99.9, 99.99)
+INT8 = "int8"  # the int8 compute dtype of SNConv and Generator
 
 _ACT = {
     "relu": F.relu,
@@ -55,12 +71,75 @@ def spectral_normalize(weight: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return weight / sigma
 
 
+# (static scales {SNConv: 0-d float32 tensor} or None, calibration
+# statistics {SNConv: {"act_absmax", "act_pq"}} or None) of the int8 convs
+# running in this context
+_INT8_SCOPE = contextvars.ContextVar("int8_scope", default=(None, None))
+
+
+@contextlib.contextmanager
+def int8_scope(scales=None, calib=None):
+    """Inside: an int8 SNConv found in `scales` quantizes its input with that
+    static per-tensor scale (the others with per-sample dynamic ones), and
+    each int8 SNConv max-merges its input's |x| max and CALIB_PERCENTILES
+    quantiles into `calib[conv]` when `calib` is a dict. Nothing outlives
+    the block."""
+    token = _INT8_SCOPE.set((scales, calib))
+    try:
+        yield
+    finally:
+        _INT8_SCOPE.reset(token)
+
+
+def _record_calib(calib, conv, xf):
+    """The JAX layer's calibration sow (layers.py:132-157): the |x| max, and
+    the quantiles of |x| on a spatially strided subsample of at most ~2^20
+    elements, each max-merged with what the conv recorded before."""
+    stride = max(1, math.ceil(math.sqrt(xf.numel() / float(1 << 20))))
+    sub = xf[:, :, ::stride, ::stride].abs().flatten()
+    q = torch.tensor(CALIB_PERCENTILES, dtype=torch.float32, device=xf.device) / 100
+    stats = {"act_absmax": xf.abs().amax(), "act_pq": torch.quantile(sub, q)}
+    prev = calib.get(conv)
+    calib[conv] = stats if prev is None else {k: torch.maximum(prev[k], v)
+                                              for k, v in stats.items()}
+
+
+def quantize_weight(w: torch.Tensor):
+    """(int8 weight, float32 per-output-channel scale (O,)) of a float32
+    OIHW kernel: symmetric, scale max|w| / 127 over dims 1-3, floored at
+    1e-12 before the division."""
+    sw = w.abs().amax(dim=(1, 2, 3)).clamp_min(1e-12) / 127.0
+    qw = torch.round(w / sw.view(-1, 1, 1, 1)).clamp(-127, 127).to(torch.int8)
+    return qw, sw
+
+
+def int8_conv(x, qw, sw, bias, stride, padding, dilation, act_scale=None):
+    """The JAX layer's `_int8_conv` (layers.py:111-191) on a quantized
+    weight: the input quantized symmetrically with `act_scale` (a static
+    per-tensor scale, floored at 1e-12) or, without one, per sample with
+    max|x| over (C, H, W) / 127; int8 x int8 summed in int32; dequantized as
+    y * (sx * sw) + bias in float32 (the product of the scales first, as
+    the JAX layer forms it), returned as bf16."""
+    # sx has four dims, so that x / sx and y * scale compute in float32
+    # whatever x's and y's dtypes (a 0-d float32 scale would leave a bf16 x
+    # in bf16)
+    if act_scale is not None:
+        sx = act_scale.float().clamp_min(1e-12).reshape(1, 1, 1, 1)
+    else:
+        absmax = torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3), keepdim=True)
+        sx = absmax.float().clamp_min(1e-12) / 127.0
+    qx = torch.round(x / sx).clamp_(-127, 127).to(torch.int8)
+    y = int8_conv2d(qx, qw, stride, padding, dilation) * (sx * sw.view(1, -1, 1, 1))
+    return y.add_(bias.float().view(1, -1, 1, 1)).to(torch.bfloat16)
+
+
 class SNConv(nn.Module):
     """2-D conv with bias and spectral normalization, symmetric integer
     padding (every conv of the generator is one).
 
-    dtype: the compute dtype (None follows the input's). Input, kernel and
-    bias are cast to it, as the JAX layer does."""
+    dtype: the compute dtype (None follows the input's, or "int8"). Input,
+    kernel and bias are cast to it, as the JAX layer does; under "int8" a
+    conv with fewer than 8 outputs runs bf16."""
 
     def __init__(self, in_features, features, kernel_size=3, stride=1,
                  padding=0, dilation=1, dtype=None):
@@ -73,6 +152,8 @@ class SNConv(nn.Module):
         self.register_buffer("u", _l2(torch.ones(features)))
         self._cache_key = None
         self._cache = None
+        self._q_key = None
+        self._q_cache = None
 
     def normalized_weight(self) -> torch.Tensor:
         """weight / sigma in float32. Under autograd it is computed anew on
@@ -87,6 +168,16 @@ class SNConv(nn.Module):
             self._cache_key = key
         return self._cache
 
+    def quantized_weight(self):
+        """`quantize_weight` of the normalized weight, kept until the weight
+        or u change (int8 runs without autograd)."""
+        key = (self.weight.data_ptr(), self.weight._version, self.u.data_ptr(), self.u._version)
+        if key != self._q_key:
+            with torch.no_grad():
+                self._q_cache = quantize_weight(self.normalized_weight())
+            self._q_key = key
+        return self._q_cache
+
     @torch.no_grad()
     def power_iteration(self):
         """Advance u by one power iteration from the current weight (the
@@ -96,9 +187,22 @@ class SNConv(nn.Module):
 
     def forward(self, x):
         dt = self.dtype or x.dtype
+        if dt == INT8:
+            if self.weight.shape[0] >= 8:
+                return self._int8_forward(x)
+            dt = torch.bfloat16
         w = self.normalized_weight().to(dt)
         return F.conv2d(x.to(dt), w, self.bias.to(dt), self.stride, self.padding,
                         self.dilation)
+
+
+    def _int8_forward(self, x):
+        scales, calib = _INT8_SCOPE.get()
+        if calib is not None:
+            _record_calib(calib, self, x.float())
+        qw, sw = self.quantized_weight()
+        scale = None if scales is None else scales.get(self)
+        return int8_conv(x, qw, sw, self.bias, self.stride, self.padding, self.dilation, scale)
 
 
 class Conv2dBlock(nn.Module):

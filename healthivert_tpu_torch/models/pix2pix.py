@@ -3,11 +3,18 @@
 Counterpart of healthivert_tpu/models/pix2pix.py: `Pix2PixConfig` (:46-125),
 `build_modules` (:145-176), `make_optimizer` (:179-182), `init_state`
 (:185-212), `generator_forward` (:215-282), `_update_sn_tree` (:386-405),
-`train_step` (:408-606) and the learning-rate schedule (:609-681). The JAX
-`_d_forward` (:375-383) is the discriminators' own forward here, whose
-`update_stats` flag stands for the mutable batch_stats collection. int8
-(:285-373), `remat`, `vmap_discriminators` and the seg discriminator are
-not ported yet.
+`train_step` (:408-606), the learning-rate schedule (:609-681) and the int8
+calibration (`INT8_CALIB_PERCENTILE`, `calib_to_quant`, `merge_calib`,
+`calibrate_int8`, :285-373). The JAX `_d_forward` (:375-383) is the
+discriminators' own forward here, whose `update_stats` flag stands for the
+mutable batch_stats collection. `remat`, `vmap_discriminators` and the seg
+discriminator are not ported yet.
+
+int8 is an inference mode of the generator (the discriminators run bf16;
+training refuses it). Its calibration statistics and static scales are flat
+dicts keyed by the module path of the conv (``fine_generator.conv1.conv``):
+a calib tree maps it to {"act_absmax": 0-d, "act_pq": (4,)} float32
+tensors, a quant tree to its 0-d float32 activation scale.
 
 Loss surface, as in the JAX package (reference pix2pix_model.py:331-353):
   G_GAN   = (gan(D1(fake)) + gan(D2(fake_seg)) + gan(D3(fake_local))) / 6
@@ -37,9 +44,9 @@ from ..utils.device import resolve_device
 from ..utils.weights import load_npz_state_dict
 from .discriminator import NLayerDiscriminator, PixelDiscriminator, gan_loss
 from .generator import Generator, init_generator
-from .layers import SNConv
+from .layers import CALIB_PERCENTILES, INT8, SNConv, int8_scope
 
-_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "int8": INT8}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +74,8 @@ class Pix2PixConfig:
     init_gain: float = 0.02
     maxheight: float = 40.0
     image_size: int = 256
-    compute_dtype: str = "float32"  # float32 | bfloat16; parameters stay float32
+    compute_dtype: str = "float32"  # float32 | bfloat16 | int8; parameters stay
+    # float32; int8 = post-training-quantized generator convs, inference only
     compute_offsets: bool = False  # attention argmax offsets (flow viz)
     vmap_discriminators: bool = False
     remat: bool = False
@@ -78,7 +86,7 @@ class Pix2PixConfig:
         if self.compute_dtype not in _DTYPES:
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port runs "
-                f"{sorted(_DTYPES)} (int8 is not ported yet)"
+                f"{sorted(_DTYPES)}"
             )
         for unported, what in ((self.remat, "remat=True"),
                                (self.vmap_discriminators, "vmap_discriminators=True"),
@@ -88,8 +96,14 @@ class Pix2PixConfig:
 
     @property
     def module_dtype(self):
-        """Conv dtype of the networks: None (follow the input) or bf16."""
+        """Conv dtype of the generator: None (follow the input), bf16 or
+        "int8"."""
         return _DTYPES[self.compute_dtype]
+
+    @property
+    def disc_dtype(self):
+        """Conv dtype of the discriminators, which never run int8."""
+        return torch.bfloat16 if self.compute_dtype == "int8" else self.module_dtype
 
 
 def build_generator(cfg: Pix2PixConfig) -> Generator:
@@ -100,11 +114,11 @@ def build_generator(cfg: Pix2PixConfig) -> Generator:
 def build_discriminator(cfg: Pix2PixConfig) -> nn.Module:
     """define_D's dispatch (reference networks.py:163-209)."""
     if cfg.net_d == "basic":
-        return NLayerDiscriminator(1, cfg.ndf, 3, cfg.norm, cfg.module_dtype)
+        return NLayerDiscriminator(1, cfg.ndf, 3, cfg.norm, cfg.disc_dtype)
     if cfg.net_d == "n_layers":
-        return NLayerDiscriminator(1, cfg.ndf, cfg.n_layers_d, cfg.norm, cfg.module_dtype)
+        return NLayerDiscriminator(1, cfg.ndf, cfg.n_layers_d, cfg.norm, cfg.disc_dtype)
     if cfg.net_d == "pixel":
-        return PixelDiscriminator(1, cfg.ndf, cfg.norm, cfg.module_dtype)
+        return PixelDiscriminator(1, cfg.ndf, cfg.norm, cfg.disc_dtype)
     raise NotImplementedError(f"Discriminator model name [{cfg.net_d}] is not recognized")
 
 
@@ -158,25 +172,44 @@ def init_state(cfg: Pix2PixConfig, seed: int = 0, device="cuda",
     return TrainState(0, gen, *discs, *opts)
 
 
+def _low_precision_inputs(batch, cfg: Pix2PixConfig):
+    """Under bf16 and int8 the 4-D float32 inputs enter as bf16."""
+    if cfg.compute_dtype not in ("bfloat16", "int8"):
+        return batch
+    return {k: (v.to(torch.bfloat16) if v.dtype == torch.float32 and v.dim() == 4 else v)
+            for k, v in batch.items()}
+
+
+def quant_scales(gen: Generator, g_quant):
+    """{SNConv: scale on its device} of a quant tree (None stays None);
+    raises KeyError for a path that names no conv of `gen`."""
+    if g_quant is None:
+        return None
+    convs = {name: m for name, m in gen.named_modules() if isinstance(m, SNConv)}
+    unknown = sorted(set(g_quant) - set(convs))
+    if unknown:
+        raise KeyError(f"quant tree names no conv of the generator: {unknown[:3]}")
+    return {convs[k]: v.to(convs[k].weight.device) for k, v in g_quant.items()}
+
+
 def generator_forward(gen: Generator, batch: Dict[str, torch.Tensor],
-                      cfg: Pix2PixConfig, update_sn: bool = False):
+                      cfg: Pix2PixConfig, update_sn: bool = False, g_quant=None):
     """Full forward including SHRM paste-back.
 
     batch: NHWC tensors context, mask, cam, full, vert_seg (B, H, W, 1) and
     (B,) slice_ratio, height, x1, x2, all on the generator's device.
-    Returns the JAX function's dict without `new_sn`: a forward never
-    updates u (training advances it with `_update_sn_tree`)."""
+    g_quant: a quant tree (calibrate_int8) whose static activation scales
+    the int8 convs use in this call; without it they take per-sample
+    dynamic scales. Returns the JAX function's dict without `new_sn`: a
+    forward never updates u (training advances it with `_update_sn_tree`)."""
     if update_sn:
         raise NotImplementedError(
             "update_sn=True is not ported: train_step advances u with _update_sn_tree"
         )
-    if cfg.compute_dtype == "bfloat16":
-        batch = {
-            k: (v.to(torch.bfloat16) if v.dtype == torch.float32 and v.dim() == 4 else v)
-            for k, v in batch.items()
-        }
+    batch = _low_precision_inputs(batch, cfg)
     cam_inv = 1.0 - batch["cam"]
-    out = gen(batch["context"], batch["mask"], cam_inv, batch["slice_ratio"])
+    with int8_scope(scales=quant_scales(gen, g_quant)):
+        out = gen(batch["context"], batch["mask"], cam_inv, batch["slice_ratio"])
     pred1_h = out.pred1_h * cfg.maxheight
     pred2_h = out.pred2_h * cfg.maxheight
 
@@ -206,6 +239,62 @@ def generator_forward(gen: Generator, batch: Dict[str, torch.Tensor],
         fake_edges=sobel_edges(fine_seg_bin),
         real_edges=sobel_edges(batch["vert_seg"]),
     )
+
+
+# The default calibration percentile of the "auto" static int8 scales: the
+# JAX package's sweep on the shipped checkpoint found 99.5 the balanced
+# point between SSIM, PSNR and IoU (its pix2pix.py:285-291).
+INT8_CALIB_PERCENTILE = 99.5
+
+
+def calib_to_quant(calib, percentile=None):
+    """Quant tree of a calib tree: act_scale = max(stat, 1e-12) / 127, the
+    stat being act_absmax or, with `percentile` (one of CALIB_PERCENTILES),
+    that entry of act_pq."""
+    if percentile is not None and percentile not in CALIB_PERCENTILES:
+        raise ValueError(
+            f"percentile must be one of {CALIB_PERCENTILES} (the act_pq "
+            f"calibration grid), got {percentile}")
+    pick = ((lambda s: s["act_absmax"]) if percentile is None else
+            (lambda s: s["act_pq"][CALIB_PERCENTILES.index(percentile)]))
+    return {k: pick(s).float().clamp_min(1e-12) / 127.0 for k, s in calib.items()}
+
+
+def merge_calib(a, b):
+    """Elementwise max of two calib trees (calibration over several batches)."""
+    if a is None:
+        return b
+    return {k: {s: torch.maximum(a[k][s], b[k][s]) for s in a[k]} for k in a}
+
+
+@torch.no_grad()
+def calibrate_one(gen: Generator, context, mask, cam_inv, slice_ratio):
+    """Calib tree of one int8 generator forward at dynamic scales."""
+    stats = {}
+    with int8_scope(calib=stats):
+        gen(context, mask, cam_inv, slice_ratio)
+    names = {m: name for name, m in gen.named_modules()}
+    return {names[m]: s for m, s in stats.items()}
+
+
+def calibrate_int8(gen: Generator, batches, cfg: Pix2PixConfig, percentile=None,
+                   return_calib=False):
+    """Static per-tensor int8 activation scales from generator_forward-style
+    batches: each int8 conv records its input's |x| max and quantiles while
+    the generator runs at dynamic scales; the trees of the batches are
+    max-merged. Returns the quant tree for generator_forward(g_quant=), or
+    with return_calib=True the merged calib tree (one pass then serves any
+    percentile through calib_to_quant)."""
+    calib = None
+    for batch in batches:
+        b = _low_precision_inputs(batch, cfg)
+        calib = merge_calib(calib, calibrate_one(gen, b["context"], b["mask"],
+                                                 1.0 - b["cam"], b["slice_ratio"]))
+    if calib is None:
+        raise ValueError("calibrate_int8 needs at least one batch")
+    if return_calib:
+        return calib
+    return calib_to_quant(calib, percentile=percentile)
 
 
 @torch.no_grad()

@@ -21,6 +21,12 @@ HWIO and ``bias``, GroupNorm ``gn<i>/scale`` and ``bias``, and the head
 ``fc/kernel`` (in, out) and ``bias``. They become the state dict of
 `models.hgam.FractureClassifier`: ``convs.<i>``, ``norms.<i>`` and ``fc``.
 
+The int8 calibration trees of the flax generator (its "calib" collection,
+``<stage>/<block>/conv/act_absmax`` and ``act_pq``) and the static scale
+trees made from them (``.../conv/act_scale``) become the port's flat dicts
+keyed by the conv's module path (``<stage>.<block>.conv``), the same path
+its weight takes in the state dict.
+
 The trees arrive as nested dicts of numpy arrays, or as a flat ``.npz``
 whose keys are the tree paths joined by "/" (``params/coarse_generator/
 conv1/conv/kernel``, ``sn/.../u``).
@@ -80,6 +86,32 @@ def flax_to_state_dict(params: Mapping, sn: Mapping) -> Dict[str, torch.Tensor]:
             raise ValueError(f"unexpected spectral-norm variable {path}")
         sd[".".join(mod + ["u"])] = torch.from_numpy(np.asarray(leaf, np.float32).copy())
     return sd
+
+
+def _int8_leaves(tree: Mapping, names):
+    """{(module path, leaf name): float32 tensor} of an int8 tree whose
+    leaves are all in `names`."""
+    out = {}
+    for path, leaf in flatten_tree(tree).items():
+        *mod, name = path.split("/")
+        if name not in names or not mod:
+            raise ValueError(f"unexpected int8 variable {path}")
+        out[(".".join(mod), name)] = torch.from_numpy(np.array(leaf, np.float32))
+    return out
+
+
+def flax_calib_to_flat(calib: Mapping) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A flax "calib" tree -> the port's calib tree {path: {"act_absmax",
+    "act_pq"}}."""
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for (mod, name), t in _int8_leaves(calib, ("act_absmax", "act_pq")).items():
+        out.setdefault(mod, {})[name] = t
+    return out
+
+
+def flax_quant_to_flat(quant: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax "quant" tree -> the port's quant tree {path: act_scale}."""
+    return {mod: t for (mod, _), t in _int8_leaves(quant, ("act_scale",)).items()}
 
 
 def flax_discriminator_to_state_dict(params: Mapping,

@@ -160,8 +160,18 @@ def test_bf16_mode_stays_bf16_end_to_end(small):
 
 
 def test_generator_forward_refuses_training_and_int8():
+    """update_sn=True stays refused; int8 builds: an int8 generator whose
+    wide convs quantize and whose 1-channel heads run bf16, and bf16
+    discriminators (held against the JAX package in tests/test_torch_int8.py)."""
+    cfg = pix2pix.Pix2PixConfig(ngf=16, compute_dtype="int8")
+    gen, discs = pix2pix.build_modules(cfg)
+    assert gen.dtype == cfg.module_dtype == "int8" and cfg.disc_dtype == torch.bfloat16
+    convs = [m for m in gen.modules() if isinstance(m, SNConv)]
+    assert all(m.dtype == "int8" for m in convs)
+    assert sum(m.weight.shape[0] >= 8 for m in convs) == 43
+    assert all(d.dtype == torch.bfloat16 for d in discs)
     with pytest.raises(NotImplementedError):
-        pix2pix.Pix2PixConfig(compute_dtype="int8")
+        pix2pix.Pix2PixConfig(compute_dtype="float16")
     with pytest.raises(NotImplementedError):
         pix2pix.generator_forward(None, {}, pix2pix.Pix2PixConfig(), update_sn=True)
 

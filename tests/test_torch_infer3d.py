@@ -100,7 +100,7 @@ def test_unported_options_raise(weights):
     vols = [(ct, labels, 20, cam)]
     with pytest.raises(NotImplementedError):
         infer3d.synthesize_volumes(gen, cfg, vols, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="int8"):
         infer3d.synthesize_volumes(gen, cfg, vols, quant="auto", device="cpu")
     with pytest.raises(ValueError, match="use_bf16"):
         infer3d.synthesize_volumes(gen, cfg, vols, use_bf16=True, device="cpu")

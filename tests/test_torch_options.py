@@ -84,7 +84,7 @@ def test_gpu_ids_select_the_device(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--compute_dtype", "int8"], ["--mesh", "data:2"], ["--mesh", "data:-1,model:2"],
+    ["--mesh", "data:2"], ["--mesh", "data:-1,model:2"],
     ["--remat"], ["--netD", "seg"], ["--lr_policy", "exponential"], ["--gpu_ids", "0,1"],
 ], ids=lambda a: " ".join(a))
 def test_unported_flags_raise(tmp_path, monkeypatch, argv):
