@@ -191,6 +191,28 @@ JSON line:
                 TFLOP/s, the CUDA cores) and the 3xTF32 bound (495 / 3
                 TFLOP/s)
 
+ 18. dist       multi-GPU on the one card (two ranks cannot share a card
+                under NCCL: "Duplicate GPU detected"), after the timings so
+                that no earlier phase's numbers move: (a) synthesize_volumes
+                sharded over make_mesh("data:2", [cuda:0, cuda:0]) at batch
+                64 bit-equal to mesh=None at batch 32 (each shard the shape
+                of an unsharded dispatch), one tensor-core launch a
+                dispatch, counted from 0 before each call; (b) run_training
+                on the float32 recipe (TF32 off), global batch 32, 2 steps,
+                as two ranks on cuda:0 over gloo (tests/torch_dist_worker.py,
+                16 a rank) against one process at 32: the ranks bit-equal,
+                one float32-route forward and backward launch a step on
+                each, losses rtol 1e-4, the first step's gradients within
+                3e-3 of each network's largest, parameters as SUM_RTOL
+                says; (c)
+                the train CLI under torchrun --standalone --nproc_per_node 1
+                (NCCL at world size 1, the backend the group reports), 3
+                steps on a NIfTI cohort, its checkpoint against the same CLI
+                without torchrun; one float32 recipe step with remat=True
+                against the plain step at the card gate, both peak device
+                bytes; each part's ms or s with the card's name and power
+                limit (not multi-card speeds: everything shares one card)
+
 then the `profiler` line (for each torch.profiler window, the kernel
 launches without a kernel record before its measured range and inside it;
 see MEASURED), the `kernels` line (14 rows, each kernel in each dtype it runs, with
@@ -322,12 +344,16 @@ def attention_inputs(b, hd, wd, c, band, dtype, seed=0, fscale=0.05):
     return t(fd), t(bd), t(b_full), torch.from_numpy(g.reshape(b, -1)).to(dev)
 
 
+CARD = []  # the nvidia-smi name and power limit, from phase_device
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD[:] = [smi]
     emit("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
          nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
          tf32="as each CLI sets it (utils.device.float32_exact: cudnn.allow_tf32 and "
@@ -2364,6 +2390,271 @@ def phase_timing_ablate_f32(b=64, hd=32, wd=32, c=64):
     return rows
 
 
+# phase dist: two ranks share the one card over gloo (NCCL refuses two ranks
+# on one card: "Duplicate GPU detected"); NCCL runs at world size 1 through
+# torchrun. DIST_STEPS optimizer steps of the float32 recipe each.
+DIST_STEPS = 2
+DIST_CACHE = 64  # synthetic examples built ahead per process (the recipe: 384)
+# parameters of two runs after a few Adam steps from one state. Adam's first
+# step moves an element by +-lr whatever the gradient's size, so where a
+# gradient sits at its rounding floor the two runs' updates may differ in
+# sign (tests/test_torch_train_step.py); those elements then change the next
+# step's gradients by ~1e-3 of themselves (seen on an H100: two ranks
+# against one process, 326 of D1's 2.76 M elements apart after step 1, the
+# step-2 gradients 1.0e-3 apart at the median element, 475 k elements more
+# than 1e-3 lr apart after step 2; one process twice, 8 and 824). So each
+# element is held within 2.2 lr a step (an Adam step of beta1 0.5 moves it
+# by at most ~1.05 lr) and each network's sum of |w| within SUM_RTOL, the
+# measure the JAX package holds its 1-vs-8-device and two-process steps to
+# (tests/test_parallel.py, tests/test_multiprocess.py)
+SUM_RTOL = 1e-5
+def grads_within(got, want):
+    """Per network, the largest |got - want| / (G + |want|) over its tensors
+    (G: the network's largest |want|), and that tensor's name."""
+    worst = {}
+    for net, tensors in want.items():
+        scale = max(float(w.abs().max()) for w in tensors.values())
+        ratios = {k: float(((got[net][k] - w).abs() / (scale + w.abs())).max())
+                  for k, w in tensors.items()}
+        name = max(ratios, key=ratios.get)
+        worst[net] = {"max_err_over_scale": ratios[name], "worst_tensor": name, "scale": scale}
+        check(scale > 0, f"dist: {net} has no gradient")
+    return worst
+
+
+def params_within(got, want, lr, steps, what):
+    """Parameters of two runs after `steps` Adam steps from one state, held
+    as SUM_RTOL says. Returns {net: {elements more than 1e-3 lr apart,
+    elements, relative difference of the sums of |w|}}."""
+    report = {}
+    for net, tensors in want.items():
+        far = total = 0
+        sums = [0.0, 0.0]
+        for k, w in tensors.items():
+            d = (got[net][k] - w).abs()
+            check(float(d.max()) <= 2.2 * steps * lr, f"{what}: {net}.{k} moved apart")
+            far += int((d > 1e-3 * lr).sum())
+            total += d.numel()
+            sums[0] += float(got[net][k].double().abs().sum())
+            sums[1] += float(w.double().abs().sum())
+        rel = abs(sums[0] - sums[1]) / sums[1]
+        report[net] = {"past_1e-3_lr": far, "elements": total, "abs_sum_rel_err": rel}
+        check(rel <= SUM_RTOL, f"{what}: {net} sum of |w| rel err {rel}")
+    return report
+
+
+def dist_synthesis():
+    """(a) synthesize_volumes sharded over make_mesh("data:2", [cuda:0,
+    cuda:0]) at batch 64 against mesh=None at batch 32 (each shard the shape
+    of an unsharded dispatch): bit-equal volumes; every dispatch one
+    tensor-core attention launch, counted from 0 just before each call."""
+    from healthivert_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Pix2PixConfig(ngf=16, image_size=256, compute_dtype="bfloat16")
+    gen = load_generator(PRETRAINED_NPZ, cfg, device="cuda")
+    ct, labels, cam = make_spine_volume(np.random.default_rng(0), fractured={20: 0.6})
+    volumes = [(ct, labels, v, cam) for v in (19, 20, 21)]
+    mesh = make_mesh("data:2", devices=["cuda:0", "cuda:0"])
+    runs = {}
+    for name, batch, m in (("unsharded", 32, None), ("sharded", 64, mesh),
+                           ("unsharded_again", 32, None)):
+        attention_v2.launches = attention_v2.tc_launches = 0
+        infer3d._forward.dispatches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = infer3d.synthesize_volumes(gen, cfg, volumes, batch_size=batch, use_bf16=True,
+                                         mesh=m, device="cuda")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches, dispatches = attention_v2.tc_launches, infer3d._forward.dispatches
+        check(launches > 0 and launches == dispatches == attention_v2.launches,
+              f"dist {name} synthesis: tensor-core launches {launches}, all "
+              f"{attention_v2.launches}, dispatches {dispatches}")
+        runs[name] = (out, ms, dispatches)
+    for (a_ct, a_lb), (b_ct, b_lb) in zip(runs["sharded"][0], runs["unsharded"][0]):
+        check(np.array_equal(a_ct, b_ct) and np.array_equal(a_lb, b_lb),
+              "dist: sharded synthesis differs from the unsharded one")
+    return {"mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices],
+            "bit_equal": True,
+            **{f"{k}_ms": v[1] for k, v in runs.items()},
+            **{f"{k}_dispatches": v[2] for k, v in runs.items()}}
+
+
+def dist_recipe(tmp, name):
+    opt = read_recipe()
+    check(opt.batch_size == 32 and opt.dataset_mode == "synthetic",
+          f"recipe: {opt.batch_size} {opt.dataset_mode}")
+    opt.compute_dtype, opt.synthetic_cache = "float32", DIST_CACHE
+    opt.checkpoints_dir, opt.name = str(tmp / name), name
+    return opt
+
+
+def dist_training(tmp, quiet):
+    """(b) run_training on the float32 recipe, global batch 32: two ranks on
+    cuda:0 over gloo (16 a rank) against one process at 32. Returns the
+    part's record."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_dist_worker import Ranks, run_training_first_grads
+
+    (tmp / "ranks").mkdir()
+    opt = dist_recipe(tmp, "ranks")
+    t0 = time.perf_counter()
+    ranks = Ranks(tmp / "ranks", [("train", "train", dict(opt=vars(opt), max_steps=DIST_STEPS))],
+                  device="cuda:0", backend="gloo", timeout=600).results()
+    ranks_s = time.perf_counter() - t0
+    r0, r1 = (r["train"] for r in ranks)
+    check([r["world"] for r in ranks] == [2, 2], "dist: world")
+    for net in r0["after"]:
+        for k, v in r0["after"][net].items():
+            check(torch.equal(v, r1["after"][net][k]), f"dist: ranks differ at {net}.{k}")
+    for r in (r0, r1):
+        counts = [(0, 0)] + [s["launches"] for s in r["steps"]]
+        per = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])]
+        check(per == [(1, 1)] * DIST_STEPS, f"dist: a rank's float32-route launches {per}")
+        check(r["steps"] and r["steps"][-1]["losses"] == r0["steps"][-1]["losses"],
+              "dist: ranks returned different losses")
+
+    # one process at the global batch, on the same recipe
+    steps, marks = [], []
+
+    def on_step(step, losses):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        steps.append({k: float(v) for k, v in losses.items()})
+
+    float32_exact()
+    with quiet:
+        state, _, want_g = run_training_first_grads(dist_recipe(tmp, "one"), max_steps=DIST_STEPS,
+                                                    device="cuda", on_step=on_step)
+    nets = dict(zip(("g", "d1", "d2", "d3"), (state.gen, state.d1, state.d2, state.d3)))
+    want = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()} for n, m in nets.items()}
+    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                   for g, w in zip((s["losses"] for s in r0["steps"]), steps) for k in w)
+    check(loss_err <= LOSS_RTOL, f"dist: losses rel err {loss_err}")
+    # the first step's gradients, from one state in both runs; later steps
+    # start from states Adam's sign flips have moved apart (SUM_RTOL)
+    grads = grads_within(r0["first_grads"], want_g)
+    for net, w in grads.items():
+        check(w["max_err_over_scale"] <= GRAD_TOL, f"dist: {net} gradient err {w}")
+    params = {n: {k: v for k, v in t.items() if k in want_g[n]} for n, t in want.items()}
+    apart = params_within(r0["after"], params, opt.lr, DIST_STEPS, "dist ranks")
+    rank_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(r0["steps"], r0["steps"][1:])]
+    return {"backend": "gloo", "device": "cuda:0", "ranks": 2, "global_batch": opt.batch_size,
+            "steps": DIST_STEPS, "losses_rel_err": loss_err, "first_step_grads": grads,
+            "params": apart, "ranks_bit_equal": True,
+            "ranks_wall_s": ranks_s, "rank_step2_ms": rank_ms,
+            "one_process_step2_ms": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]}
+
+
+def dist_nccl(tmp, quiet):
+    """(c) the train CLI under torchrun --standalone --nproc_per_node 1 (NCCL
+    at world size 1), 3 steps of the float32 recipe's flags on a NIfTI
+    cohort, against the same CLI without torchrun in this process: the
+    checkpoints' parameters as in (b), their Adam first moments (a sum of
+    the steps' gradients) at the gradient gate."""
+    from healthivert_tpu_torch.cli import train as train_cli
+
+    data = tmp / "cohort"
+    write_cli_cohort(data, patients=2)
+    recipe = read_recipe()
+    steps = 3
+    flags = ["--dataroot", str(data), "--cam_dir", str(data / "CAM"),
+             "--checkpoints_dir", str(tmp / "ck"), "--batch_size", str(recipe.batch_size),
+             "--seed", str(recipe.seed), "--direction", recipe.direction,
+             "--print_freq", str(recipe.batch_size), "--display_freq", "0",
+             "--save_epoch_freq", "1000", "--save_latest_freq", "1000000",
+             "--eval_freq", "1000", "--max_steps", str(steps)]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "healthivert_tpu_torch.cli.train", *flags, "--name", "torchrun"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    torchrun_s = time.perf_counter() - t0
+    (tmp / "torchrun.log").write_text(run.stdout + run.stderr)
+    check(run.returncode == 0, f"torchrun train CLI exited {run.returncode}:\n"
+          f"{(run.stdout + run.stderr)[-3000:]}")
+    backend = re.findall(r"process group: backend (\w+), rank 0 of 1", run.stdout)
+    check(backend == ["nccl"], f"torchrun train CLI: process group {backend}")
+    tf32_defaults()
+    t0 = time.perf_counter()
+    with quiet:
+        state, _ = train_cli.main(flags + ["--name", "plain"])
+    plain_s = time.perf_counter() - t0
+    check_exact("train CLI (phase dist)")
+    got = torch.load(tmp / "ck" / "torchrun" / "latest.pt", map_location="cpu", weights_only=True)
+    want = torch.load(tmp / "ck" / "plain" / "latest.pt", map_location="cpu", weights_only=True)
+    check(got["step"] == want["step"] == steps, f"torchrun: steps {got['step']}, {want['step']}")
+    nets = ("gen", "d1", "d2", "d3")
+    names = {n: [k for k, _ in getattr(state, n).named_parameters()] for n in nets}
+    pick = lambda ck: {n: {k: ck[n][k] for k in names[n]} for n in nets}
+    apart = params_within(pick(got), pick(want), recipe.lr, steps, "torchrun")
+    # Adam's state is indexed by the parameters' order
+    moment = lambda ck: {n: {k: ck[o]["state"][i]["exp_avg"] for i, k in enumerate(names[n])}
+                         for n, o in zip(nets, ("opt_g", "opt_d1", "opt_d2", "opt_d3"))}
+    m = grads_within(moment(got), moment(want))
+    for net, w in m.items():
+        check(w["max_err_over_scale"] <= GRAD_TOL, f"torchrun: {net} Adam moment err {w}")
+    return {"launcher": "torchrun --standalone --nproc_per_node 1", "backend": backend[0],
+            "steps": steps, "params": apart, "adam_first_moment": m,
+            "torchrun_wall_s": torchrun_s, "in_process_wall_s": plain_s}
+
+
+def dist_remat():
+    """One float32 train_step of the recipe at full width, batch 32, plain
+    and with remat=True from one state and batch: losses and gradients at
+    the card gate, each step's peak device bytes and float32-route launches
+    (remat runs the forward again in the backward)."""
+    float32_exact()
+    opt = read_recipe()
+    batch = to_device(SyntheticDataset(batch_size=opt.batch_size, seed=0,
+                                       n_volumes=2).sample_batch(), "cuda")
+    runs = {}
+    for remat in (False, True):
+        cfg = Pix2PixConfig(ngf=16, ndf=opt.ndf, image_size=opt.crop_size,
+                            compute_dtype="float32", remat=remat)
+        state = pix2pix.init_state(cfg, seed=opt.seed, device="cuda", gen_npz=PRETRAINED_NPZ)
+        before = route_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state, losses = pix2pix.train_step(state, batch, opt.lr, cfg)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        delta = [a - n for a, n in zip(route_counts(), before)]
+        nets = {"G": state.gen, "D1": state.d1, "D2": state.d2, "D3": state.d3}
+        grads = {n: {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+                 for n, m in nets.items()}
+        runs[remat] = ({k: float(v) for k, v in losses.items()}, grads, peak, delta)
+        del state
+    (l0, g0, p0, d0), (l1, g1, p1, d1) = runs[False], runs[True]
+    # route_counts: forward all, tc, tf32; backward all, tc, tf32
+    check(d0 == [1, 0, 1, 1, 0, 1] and d1 == [2, 0, 2, 1, 0, 1],
+          f"remat: float32-route launches plain {d0}, remat {d1}")
+    loss_err = max(abs(l1[k] - v) / max(abs(v), 1e-12) for k, v in l0.items())
+    check(loss_err <= LOSS_RTOL, f"remat: losses rel err {loss_err}")
+    grads = grads_within(g1, g0)
+    for net, w in grads.items():
+        check(w["max_err_over_scale"] <= GRAD_TOL, f"remat: {net} gradient err {w}")
+    return {"batch": opt.batch_size, "losses_rel_err": loss_err, "grads": grads,
+            "peak_bytes_plain": p0, "peak_bytes_remat": p1}
+
+
+@in_scratch
+def phase_dist(tmp, quiet):
+    """Multi-GPU on the one card: (a) the sharded 3D synthesis, (b) two-rank
+    data-parallel training over gloo, (c) the train CLI under torchrun with
+    NCCL at world size 1, and one float32 step with remat; each part's ms
+    beside the card's name and power limit. These are not multi-card speeds:
+    the shards and ranks share one card."""
+    float32_exact()
+    t0 = time.perf_counter()
+    parts = {"synthesis": dist_synthesis()}
+    parts["training_2_ranks"] = dist_training(tmp, quiet)
+    parts["torchrun_nccl"] = dist_nccl(tmp, quiet)
+    parts["remat"] = dist_remat()
+    emit("dist", card=CARD[0], one_card=True, seconds=time.perf_counter() - t0, **parts,
+         tolerances={"loss_rtol": LOSS_RTOL, "grad": GRAD_TOL, "param_abs_sum_rtol": SUM_RTOL})
+
+
 ABLATE_REPLACES = {"run": 247, "run_padded": 289, "run_auto": 466, "run_fold": 657}
 
 
@@ -2402,6 +2693,7 @@ def main():
     tfb = phase_timing_bwd(dtype=torch.float32)
     t1f = phase_timing_v1(dtype=torch.float32)
     taf = phase_timing_ablate_f32()
+    phase_dist()
     src = "healthivert_tpu_torch/csrc/"
     pallas = "healthivert_tpu/ops/attention_pallas.py"
     rows = [dict(name="attention_v2", source=src + "attention_tc.cu", replaces=f"{pallas}:476",

@@ -11,7 +11,9 @@ pseudo-healthy vertebra (upper neighbour -> lower neighbour -> target, all
 slices batched per pass, a patient's vertebrae sharing the passes) and
 writes CT_fake/ and label_fake/ NIfTIs with the input's affine. Outputs
 that exist are skipped. Runs on the card of --gpu_ids (default 0);
---gpu_ids -1 runs on the CPU.
+--gpu_ids -1 runs on the CPU. Several ids (--gpu_ids 0,1,2,3) shard each
+pass's slice batches over those cards in this one process, on the mesh of
+--mesh (default data:-1, every listed card).
 
 --compute_dtype int8 --int8_calib auto (the default calibration) calibrates
 static int8 scales on the first batch and keeps them in
@@ -29,11 +31,12 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from ..config.options import TestOptions
+from ..config.options import TestOptions, gpu_id_list
 from ..data.aligned import find_cam_path
 from ..engine import checkpoint as ckpt
 from ..engine.infer3d import synthesize_volumes
 from ..models.pix2pix import Pix2PixConfig
+from ..parallel.mesh import make_mesh
 from ..utils import nifti
 from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
@@ -64,6 +67,7 @@ def main(argv=None):
     rest = list(rest) + ["--compute_dtype", ns.compute_dtype]
     opt = options_with(pre, TestOptions).parse(rest)
     dev = opt.device
+    mesh = card_mesh(opt)
     cfg = Pix2PixConfig(ngf=16, image_size=opt.crop_size, compute_dtype=opt.compute_dtype)
     gen = ckpt.generator_for_cli(opt, cfg, dev, load_npz=ns.load_npz)
     # int8: static scales by default, persisted beside the checkpoint so that
@@ -102,7 +106,8 @@ def main(argv=None):
             t0 = time.perf_counter()
             vols, imgs = load_group(io, opt, group)
             t_read = time.perf_counter() - t0
-            results = synthesize_group(gen, cfg, vols, axis, ns.slice_batch, dev, **quant)
+            results = synthesize_group(gen, cfg, vols, axis, ns.slice_batch, dev, mesh=mesh,
+                                       **quant)
             for w in writes:  # the previous patient's files, before the next ones
                 stats["io_write_s"] += w.result()
             writes = [io.submit(_save, r, img, out_ct, out_lb, fname)
@@ -118,6 +123,17 @@ def main(argv=None):
         io.shutdown(wait=True)
     stats["total_s"] = time.perf_counter() - t_all
     return stats
+
+
+def card_mesh(opt):
+    """The mesh of --mesh over the cards of --gpu_ids when it lists more
+    than one, else None (one device, unsharded dispatches)."""
+    ids = gpu_id_list(opt.gpu_ids)
+    if len(ids) < 2:
+        return None
+    mesh = make_mesh(opt.mesh, devices=[f"cuda:{i}" for i in ids])
+    print(f"sharding slice batches over mesh {dict(mesh.shape)}")
+    return mesh
 
 
 def load_group(io, opt, group):
@@ -139,7 +155,8 @@ def load_group(io, opt, group):
     return [v for v, _ in loaded], [img for _, img in loaded]
 
 
-def synthesize_group(gen, cfg, vols, axis, slice_batch, dev, quant=None, quant_store=None):
+def synthesize_group(gen, cfg, vols, axis, slice_batch, dev, mesh=None, quant=None,
+                     quant_store=None):
     """synthesize_volumes over one group. It stacks slices across volumes,
     so all must share the slice shape along `axis`; a group with mismatched
     shapes runs as per-shape sub-groups."""
@@ -155,7 +172,7 @@ def synthesize_group(gen, cfg, vols, axis, slice_batch, dev, quant=None, quant_s
     for idxs in by_shape.values():
         sub = synthesize_volumes(gen, cfg, [vols[i] for i in idxs], batch_size=slice_batch,
                                  use_bf16=cfg.compute_dtype != "float32", axis=axis,
-                                 quant=quant, quant_store=quant_store, device=dev)
+                                 mesh=mesh, quant=quant, quant_store=quant_store, device=dev)
         for i, r in zip(idxs, sub):
             results[i] = r
     return results

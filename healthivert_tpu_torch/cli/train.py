@@ -8,6 +8,15 @@ save_epoch_freq-th epoch, and iter_N under --save_by_iter); --continue_train
 resumes from --epoch (or --load_iter N). Hermetic run without data: add
 --dataset_mode synthetic. Runs on the card of --gpu_ids (default 0);
 --gpu_ids -1 runs on the CPU.
+
+Data-parallel on N cards, one process a card, --batch_size the global batch:
+
+    torchrun --standalone --nproc_per_node N -m healthivert_tpu_torch.cli.train \
+        --gpu_ids 0,1,...,N-1 --batch_size 32 ...
+
+Each process takes the card of --gpu_ids at its LOCAL_RANK and joins the
+process group over NCCL (gloo with --gpu_ids -1). --mesh data:-1 (the
+default) is the world size; another data size must equal it.
 """
 
 from __future__ import annotations
@@ -16,6 +25,8 @@ import sys
 
 from ..config.options import TestOptions, TrainOptions
 from ..engine.train_loop import run_training
+from ..parallel import distributed
+from ..parallel.mesh import mesh_shape
 from ..utils.device import float32_exact
 from .common import load_npz_parser, options_with
 
@@ -35,12 +46,24 @@ def parse_profile_steps(spec):
     return start, stop
 
 
+def check_mesh(spec, world):
+    """Exit unless the data axis of --mesh is the world size (-1 is)."""
+    n = mesh_shape(spec, world).get("data", 1)
+    if n != world:
+        raise SystemExit(
+            f"--mesh {spec} asks for {n} data shards, but {world} process(es) run: the "
+            "train CLI runs one process per shard; start it as torchrun --standalone "
+            f"--nproc_per_node {n} -m healthivert_tpu_torch.cli.train ... with one card "
+            "a process in --gpu_ids")
+
+
 def main(argv=None):
     float32_exact()
     pre = load_npz_parser()
     ns, rest = pre.parse_known_args(argv)
     opt = options_with(pre, TrainOptions).parse(rest)
     opt.load_npz = ns.load_npz
+    check_mesh(opt.mesh, distributed.ensure_initialized(device=opt.device))
 
     # second parse for the in-training eval split (reference train.py:173-177);
     # known_only: ignore train-only flags when re-parsing for the eval split
@@ -55,4 +78,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:])
+    try:
+        main(sys.argv[1:])
+    finally:
+        distributed.shutdown()

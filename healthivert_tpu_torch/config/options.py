@@ -12,9 +12,11 @@ the flags' meaning in the JAX package, whose checkpoints and recipes these
 options reproduce.
 
 Where the JAX package selects a JAX backend, the port resolves a torch
-device: --gpu_ids -1 selects the CPU (the reference's semantics), any id
->= 0 selects that CUDA card and raises when there is none. A flag naming a
-feature the port lacks raises NotImplementedError when it is used
+device: --gpu_ids -1 selects the CPU (the reference's semantics), an id >= 0
+selects that CUDA card and raises when there is none. Several ids are the
+cards of a run: under torchrun each process takes the id at its LOCAL_RANK,
+and the 3D synthesis CLI shards its slice batches over all of them. A flag
+naming a feature the port lacks raises NotImplementedError when it is used
 (`check_ported`).
 """
 
@@ -24,7 +26,6 @@ import argparse
 import os
 
 import torch
-
 
 
 def _base_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -191,51 +192,52 @@ def _test_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
 LR_POLICIES = ("linear", "step", "plateau", "cosine")
 
 
-def device_from_gpu_ids(gpu_ids) -> torch.device:
-    """The device of --gpu_ids: the CPU when no id is >= 0 (the reference's
-    semantics, base_options.py:131-139), else ``cuda:<first id>``, which
-    raises when there is no card."""
+def gpu_id_list(gpu_ids):
+    """The ids >= 0 of --gpu_ids, in order; strict, as the reference's int()
+    loop: a typo must error, not silently fall back to the CPU."""
     try:
-        # strict, as the reference's int() loop: a typo must error, not
-        # silently fall back to the CPU
         ids = [int(t) for t in str(gpu_ids).split(",") if t.strip()]
     except ValueError:
         raise SystemExit(f"--gpu_ids expects comma-separated integers, got {gpu_ids!r}")
-    ids = [i for i in ids if i >= 0]
+    return [i for i in ids if i >= 0]
+
+
+def device_from_gpu_ids(gpu_ids) -> torch.device:
+    """The device of --gpu_ids: the CPU when no id is >= 0 (the reference's
+    semantics, base_options.py:131-139), else ``cuda:<id>`` for the id at
+    this process's LOCAL_RANK (torchrun's; 0 without it), which raises when
+    there is no card."""
+    ids = gpu_id_list(gpu_ids)
     if not ids:
         return torch.device("cpu")
-    if len(ids) > 1:
-        raise NotImplementedError(
-            f"--gpu_ids {gpu_ids}: the port runs on one card; several cards "
-            "are ROADMAP.md section 1 item 7 (multi-GPU)"
-        )
+    local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+    if local_rank >= len(ids):
+        raise SystemExit(
+            f"--gpu_ids {gpu_ids} names {len(ids)} card(s) but this is local process "
+            f"{local_rank}: give one id per process of torchrun --nproc_per_node")
     if not torch.cuda.is_available():
         raise RuntimeError(
-            f"--gpu_ids {gpu_ids} selects cuda:{ids[0]}, but torch.cuda.is_available() "
-            "is False; pass --gpu_ids -1 to run on the CPU"
+            f"--gpu_ids {gpu_ids} selects cuda:{ids[local_rank]}, but "
+            "torch.cuda.is_available() is False; pass --gpu_ids -1 to run on the CPU"
         )
-    return torch.device(f"cuda:{ids[0]}")
+    return torch.device(f"cuda:{ids[local_rank]}")
 
 
-def _mesh_devices(spec: str) -> int:
-    """Device count of a --mesh spec; -1 (every device) counts as the one
-    device the port runs on."""
-    n = 1
+def _mesh_axes(spec: str):
+    """(axis, size) pairs of a --mesh spec as written (-1 stays -1)."""
     for part in filter(None, (p.strip() for p in spec.split(","))):
-        _, _, size = part.partition(":")
-        n *= max(int(size or 1), 1)
-    return n
+        name, _, size = part.partition(":")
+        yield name.strip(), int(size or -1)
 
 
 def check_ported(opt) -> None:
     """Raise NotImplementedError for a flag whose feature the port lacks,
     naming where ROADMAP.md queues it."""
     unported = []
-    if _mesh_devices(getattr(opt, "mesh", "data:-1")) > 1:
-        unported.append(f"--mesh {opt.mesh} over several devices (ROADMAP.md section 1 "
-                        "item 7, multi-GPU)")
-    if getattr(opt, "remat", False):
-        unported.append("--remat (ROADMAP.md section 1 item 8)")
+    for axis, n in _mesh_axes(getattr(opt, "mesh", "data:-1")):
+        if axis != "data" and n != 1:
+            unported.append(f"--mesh {opt.mesh}: a {axis} axis (ROADMAP.md section 1 "
+                            "item 8; data parallelism alone is ported)")
     if getattr(opt, "netD", "basic") == "seg":
         unported.append("--netD seg (ROADMAP.md section 1 item 8, models/legacy.py)")
     if opt.isTrain and getattr(opt, "lr_policy", "linear") not in LR_POLICIES:
@@ -287,7 +289,8 @@ class BaseOptions:
         lines.append("----------------- End -------------------")
         message = "\n".join(lines)
         print(message)
-        if save:
+        # under torchrun the processes share the run dir: rank 0 writes it
+        if save and int(os.environ.get("RANK", "0")) == 0:
             expr_dir = os.path.join(opt.checkpoints_dir, opt.name)
             os.makedirs(expr_dir, exist_ok=True)
             with open(os.path.join(expr_dir, f"{opt.phase}_opt.txt"), "w") as f:

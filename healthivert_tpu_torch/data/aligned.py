@@ -8,9 +8,10 @@ optional HGAM CAM) NIfTIs from {dataroot}/{CT,label}/{patient}_{vert}.nii.gz,
 and builds batches with the shared host sampler. IO + geometry run in a
 thread pool ('--num_threads').
 
-The port runs as one process: where the JAX package slices each global
-batch per process, this raises NotImplementedError under a
-torch.distributed group of more than one process.
+Under a torch.distributed group of several processes a training dataset
+loads only this process's slice of each global batch
+(parallel/distributed.process_batch_slice), as the JAX package does per
+JAX process; evaluation datasets are read whole by every process.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..parallel import distributed
 from ..utils import nifti
 from .sampler import build_example, collate
 
@@ -115,15 +117,20 @@ class AlignedDataset:
         self._cache: "OrderedDict[str, tuple]" = OrderedDict()
         self._cache_bytes = 0
         self._cache_lock = threading.Lock()
-        # the JAX package slices each global batch per process here; the
-        # port runs one process (ROADMAP.md section 1 item 7, multi-GPU)
-        import torch.distributed as dist
-
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "AlignedDataset runs in one process; multi-process data "
-                "parallelism is ROADMAP.md section 1 item 7 (multi-GPU)"
-            )
+        # data parallelism over processes: every process derives the same
+        # epoch order (shared seed) but loads only its own contiguous slice
+        # of each global batch. Training datasets only: evaluation splits
+        # are read whole by every process, which keeps the plateau policy's
+        # metric the same everywhere
+        self.local_slice = None
+        world = distributed.process_count()
+        if world > 1 and getattr(opt, "isTrain", False):
+            if self.batch_size % world != 0:
+                raise ValueError(
+                    f"batch_size {self.batch_size} must divide by process "
+                    f"count {world}"
+                )
+            self.local_slice = distributed.process_batch_slice(self.batch_size)
 
     def __len__(self):
         return len(self.vertebra_ids)
@@ -210,5 +217,14 @@ class AlignedDataset:
         for i in range(0, len(ids), self.batch_size):
             chunk = ids[i : i + self.batch_size]
             gidx = list(range(i, i + len(chunk)))
+            if self.local_slice is not None:
+                if len(chunk) < self.batch_size:
+                    # the slices need the full global size: pad the trailing
+                    # chunk by repetition before slicing
+                    reps = -(-self.batch_size // len(chunk))
+                    chunk = (chunk * reps)[: self.batch_size]
+                    gidx = (gidx * reps)[: self.batch_size]
+                chunk = chunk[self.local_slice]
+                gidx = gidx[self.local_slice]
             examples = list(self.pool.map(self._load_example, chunk, gidx))
             yield collate(examples)

@@ -9,7 +9,9 @@ dicts (the generator's spectral-norm u vectors and the discriminators'
 BatchNorm running statistics are buffers there) and the four Adam states;
 a generator-only one holds the generator's state dict. Each file is written
 to a temporary name and moved into place (`os.replace`), so a crash never
-leaves a torn checkpoint.
+leaves a torn checkpoint. Under a process group of several ranks, whose
+states are replicas, rank 0 writes the file and every rank then meets at a
+barrier; a resume reads the file on every rank.
 
 The fracture classifier (HGAM) is kept as ``{out}/classifier.pt`` beside
 the ``meta.json`` its CLI writes; the JAX package's CLI keeps an orbax
@@ -30,6 +32,7 @@ import torch
 
 from ..models.generator import Generator
 from ..models.pix2pix import Pix2PixConfig, TrainState, build_generator
+from ..parallel import distributed
 from ..utils.device import resolve_device
 from ..utils.pth import load_discriminator_pth, load_generator_pth
 from ..utils.weights import load_npz_state_dict
@@ -56,11 +59,13 @@ def checkpoint_path(run_dir, tag) -> str:
 
 
 def _write(obj, run_dir, tag) -> str:
-    os.makedirs(run_dir, exist_ok=True)
     path = checkpoint_path(run_dir, tag)
-    tmp = path + ".tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+    if distributed.process_index() == 0:
+        os.makedirs(run_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    distributed.barrier()
     return path
 
 

@@ -22,8 +22,12 @@ batch size give bit-equal volumes. The JAX package's `.msgpack` store is not
 read: its fingerprint hashes the flax tree's paths, this one the port's
 state-dict keys.
 
-`mesh=` (sharding over several cards) is not ported in this slice and
-raises NotImplementedError.
+`mesh=` (parallel/mesh.make_mesh, in one process) shards each dispatch's
+slice batch over the mesh's devices, as the JAX package's shard_map does:
+the batch is rounded up to a multiple of the data size, each device holds
+one generator replica and the CAM stack, the shards are launched before any
+output is copied back, and gathered in order. Every op is per sample, so
+the sharded volumes equal the unsharded ones at the shard's batch size.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..models.pix2pix import (
     calibrate_one,
     quant_scales,
 )
+from ..parallel.mesh import Mesh, replicate_state
 from ..utils.device import resolve_device
 
 MAXHEIGHT = 40
@@ -209,32 +214,37 @@ def _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size, keys=_INT_KEYS):
     return chunk, ct, rat, zidx, ints
 
 
-def _run_pass(gen, jobs, ratios, cam_stack, job_zidx, batch_size=32,
-              use_bf16=True, g_quant=None):
+def _run_pass(shards, jobs, ratios, job_zidx, batch_size=32, use_bf16=True, g_quant=None):
     """Batched forwards over a list of geometry jobs; returns per-job
-    outputs. cam_stack is a device-resident (NZ, H, W) uint8 tensor;
-    job_zidx maps each job to its stack row; g_quant, a quant tree of
-    static int8 scales."""
+    outputs. shards: one (generator, device-resident (NZ, H, W) uint8 CAM
+    stack) per shard of each dispatch, the stack's rows indexed by
+    job_zidx; g_quant, a quant tree of static int8 scales. With several
+    shards each dispatch of batch_size slices (a multiple of the shard
+    count) is split evenly over them, every shard launched before any
+    output is copied back."""
     if not jobs:
         return []
-    dev = cam_stack.device
     # window for this pass: covers x1-20 .. x1+max(MAXHEIGHT, height) of the
     # tallest job, in 32-row buckets
     need = 20 + max(MAXHEIGHT, max(j["height"] for j in jobs))
     win = max(WINDOW, -(-need // 32) * 32)
     for j in jobs:
         j["w0"] = min(max(j["x1"] - 20, 0), max(j["width"] - win, 0))
-    scales = quant_scales(gen, g_quant)
+    scales = {id(g): quant_scales(g, g_quant) for g, _ in shards}
+    per = batch_size // len(shards)
     outs = []
     for i0 in range(0, len(jobs), batch_size):
         chunk, ct, rat, zidx, ints = _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size)
-        t = lambda a: torch.from_numpy(a).to(dev)
-        x2_, seg, ph = _forward(
-            gen, t(ct), cam_stack, t(zidx), t(ints["x1"]), t(ints["x2"]),
-            t(ints["min_x"]), t(ints["max_x"]), t(rat), t(ints["w0"]),
-            scales=scales, use_bf16=use_bf16, win=win,
-        )
-        x2_, seg, ph = x2_.cpu().numpy(), seg.cpu().numpy(), ph.cpu().numpy()
+        launched = []
+        for k, (gen, cam_stack) in enumerate(shards):
+            part = slice(k * per, (k + 1) * per)
+            t = lambda a: torch.from_numpy(a[part]).to(cam_stack.device)
+            launched.append(_forward(
+                gen, t(ct), cam_stack, t(zidx), t(ints["x1"]), t(ints["x2"]),
+                t(ints["min_x"]), t(ints["max_x"]), t(rat), t(ints["w0"]),
+                scales=scales[id(gen)], use_bf16=use_bf16, win=win,
+            ))
+        x2_, seg, ph = (torch.cat([o[i].cpu() for o in launched]).numpy() for i in range(3))
         for k in range(len(chunk)):
             outs.append((x2_[k, :, :, 0], seg[k, :, :, 0], float(ph[k])))
     return outs
@@ -341,9 +351,19 @@ def synthesize_volumes(
     pass with jobs); or a quant tree (models.pix2pix.calibrate_int8).
     quant_store (with "auto"): a file of the port's quant store. If it
     holds scales for these weights they are used and no calibration runs;
-    otherwise the scales calibrated here are written there."""
+    otherwise the scales calibrated here are written there.
+
+    mesh: a one-process parallel.mesh.Mesh; each dispatch's batch_size,
+    rounded up to a multiple of its data size, is split over its devices
+    (`device` is then the device of `gen`, which serves the shards on it)."""
     if mesh is not None:
-        raise NotImplementedError("mesh= (multi-GPU sharding) is not ported yet")
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh= takes a parallel.mesh.Mesh, got {type(mesh).__name__}")
+        if mesh.processes > 1:
+            raise ValueError("synthesize_volumes(mesh=...) shards over the devices of one "
+                             "process; under a process group each process synthesizes its "
+                             "own volumes")
+        batch_size = -(-batch_size // mesh.size) * mesh.size  # shardable dispatches
     if quant is not None and cfg.compute_dtype != "int8":
         raise ValueError("quant= is only meaningful with compute_dtype='int8'")
     dev = resolve_device(device)
@@ -400,9 +420,12 @@ def synthesize_volumes(
         ]
     cams = np.concatenate(all_cams)
     bucket = _cam_bucket(row_off)
-    cam_stack = torch.from_numpy(
-        np.pad(cams, ((0, bucket - row_off), (0, 0), (0, 0)))
-    ).to(dev)
+    cam_host = torch.from_numpy(np.pad(cams, ((0, bucket - row_off), (0, 0), (0, 0))))
+    cam_stack = cam_host.to(dev)
+    shards = [(gen, cam_stack)]
+    if mesh is not None:
+        stacks = {d: cam_host.to(d) for d in set(mesh.devices)}
+        shards = [(g, stacks[d]) for g, d in zip(replicate_state(gen, mesh), mesh.devices)]
 
     g_quant = None if quant == "auto" else quant
     if quant == "auto" and quant_store and os.path.exists(quant_store):
@@ -449,8 +472,7 @@ def synthesize_volumes(
             g_quant = calib_to_quant(calib, percentile=INT8_CALIB_PERCENTILE)
             if quant_store:
                 _save_quant_store(quant_store, g_quant, gen)
-        outs = _run_pass(gen, jobs, job_ratio, cam_stack, job_rows, batch_size, use_bf16,
-                         g_quant)
+        outs = _run_pass(shards, jobs, job_ratio, job_rows, batch_size, use_bf16, g_quant)
         for geo, (prep, z, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
             ct_new, lb_new, _ = _reassemble(
                 geo, x2_, seg, ph, prep["ct_state"][z], prep["lb_state"][z], vid

@@ -1,12 +1,17 @@
 """The training loop: epoch loop, LR schedule, checkpoints, periodic eval.
 
-Counterpart of healthivert_tpu/engine/train_loop.py:39-310 on one device
-(structure parity with the reference train.py:162-236: print/save cadences,
-eval every `eval_freq` epochs, 'latest' + epoch checkpoints). Batches are
-built ahead on a background thread and copied to the device (depth 2); a
-trailing partial batch is padded back to the batch size by cyclic
-repetition, as the JAX loop does. The device mesh and multi-process runs
-are not ported (ROADMAP.md section 1 item 7).
+Counterpart of healthivert_tpu/engine/train_loop.py:39-310 (structure
+parity with the reference train.py:162-236: print/save cadences, eval every
+`eval_freq` epochs, 'latest' + epoch checkpoints). Batches are built ahead
+on a background thread and copied to the device (depth 2); a trailing
+partial batch is padded back to the batch size by cyclic repetition, as the
+JAX loop does.
+
+Data parallelism runs one process per card under torchrun
+(parallel/distributed.py): each rank trains on its slice of the global
+batch --batch_size, the step averages the gradients over the ranks, rank 0
+alone writes the logs, web visuals and checkpoints, and every rank evaluates
+the whole eval split.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch
 from ..data import create_dataset
 from ..data.prefetch import prefetch_to_device, to_device
 from ..models.pix2pix import LRSchedule, Pix2PixConfig, generator_forward, init_state, train_step
+from ..parallel import distributed
+from ..parallel.mesh import make_mesh, pad_batch, replicate_state
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from .evaluate import evaluate_model
@@ -48,17 +55,6 @@ def config_from_opt(opt) -> Pix2PixConfig:
         gan_head_preupdate=getattr(opt, "gan_head_preupdate", True),
         crop_d3=getattr(opt, "crop_d3", True),
     )
-
-
-def pad_batch(batch: dict, size: int) -> dict:
-    """Pad a batch dict's leading dim up to `size` by cyclic repetition
-    (healthivert_tpu/parallel/mesh.py:45-57): one step per epoch then
-    weights the repeated examples double, as in the JAX loop."""
-    n = next(iter(batch.values())).shape[0]
-    if n == size:
-        return batch
-    reps = -(-size // n)
-    return {k: np.concatenate([np.asarray(v)] * reps)[:size] for k, v in batch.items()}
 
 
 def _save_web_visuals(state, batch, cfg, run_dir, epoch, iters, visualizer=None):
@@ -157,12 +153,27 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
     save_epoch_freq-th epoch and at the last step; evaluation on opt_test's
     split every eval_freq epochs. profile_steps=(START, STOP) traces those
     steps. on_step(step, losses), when given, is called after every step
-    with the losses as device tensors."""
+    with the losses as device tensors.
+
+    Under torchrun (or a process group the caller started) each of the
+    world's processes trains on `device` with its slice of the global batch
+    opt.batch_size; a dataset that yields the global batch on every process
+    (synthetic) is padded to the global size and sliced here, as in the JAX
+    loop. The replicas start from rank 0's state."""
     if getattr(opt, "compute_dtype", "float32") == "int8":
         raise SystemExit("--compute_dtype int8 is inference-only; train in "
                          "bfloat16/float32")
     cfg = config_from_opt(opt)
     dev = resolve_device(device)
+    world = distributed.ensure_initialized(device=dev)
+    # one shard a process: the data axis is the world (a --mesh asking for
+    # another size raises, naming the torchrun command)
+    mesh = make_mesh(getattr(opt, "mesh", "data:-1"), devices=[dev])
+    is_main = distributed.process_index() == 0
+    if opt.batch_size % world != 0:
+        raise ValueError(f"batch_size {opt.batch_size} must divide by process count {world}")
+    local_bs = opt.batch_size // world
+    local = distributed.process_batch_slice(opt.batch_size)
     dataset = create_dataset(opt)
     print(f"The number of training images = {len(dataset)}")
     eval_dataset = None
@@ -174,10 +185,12 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
 
     run_dir = os.path.join(opt.checkpoints_dir, opt.name)
     os.makedirs(run_dir, exist_ok=True)
-    visualizer = Visualizer(opt)
+    # logs, web visuals and checkpoints are written by rank 0 alone
+    visualizer = Visualizer(opt) if is_main else None
     state = init_state(cfg, seed=opt.seed, device=dev,
                        gen_npz=getattr(opt, "load_npz", None))
-    _print_networks(state, verbose=getattr(opt, "verbose", False))
+    if is_main:
+        _print_networks(state, verbose=getattr(opt, "verbose", False))
     if getattr(opt, "load_pth", None):
         # G + sibling D_1..3 files when present (load_networks parity)
         ckpt.restore_full_pth(state, opt.load_pth, n_layers_d=getattr(opt, "n_layers_D", 3))
@@ -189,7 +202,13 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
         elif ckpt.orbax_exists(run_dir, resume_tag):
             raise ckpt.orbax_error(run_dir, resume_tag)
 
+    nets = (state.gen, state.d1, state.d2, state.d3)
+    for net in nets:  # every rank starts from rank 0's replica
+        replicate_state(net, mesh)
+
     profiler = _Profiler(run_dir)
+    if not is_main:
+        profile_steps = None  # rank 0 alone writes the trace
     if profile_steps and state.step >= profile_steps[1]:
         print(f"warning: --profile_steps window {profile_steps} is entirely before "
               f"the resume step {state.step}; no trace will be written")
@@ -201,7 +220,14 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
     done = False
 
     def place(b):
-        b = pad_batch(b, opt.batch_size)
+        n = next(iter(b.values())).shape[0]
+        if world > 1 and n > local_bs:
+            # the dataset yielded the global batch on every process (the
+            # synthetic one): keep this process's disjoint slice
+            b = pad_batch(b, opt.batch_size)
+            b = {k: v[local] for k, v in b.items()}
+        else:
+            b = pad_batch(b, local_bs)
         return to_device(b, dev)
 
     for epoch in range(opt.epoch_count, opt.n_epochs + opt.n_epochs_decay + 1):
@@ -233,11 +259,14 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
                     if profiler.on:  # the diverging steps' trace is the one wanted
                         profiler.stop(" (divergence abort)")
                     raise
+                distributed.check_replicated(nets, f"networks at step {state.step}")
                 t_comp = (time.time() - iter_start) / opt.batch_size
-                visualizer.print_current_losses(epoch, epoch_iter, host, t_comp, t_data)
-                visualizer.log_scalars("train", host, total_iters)
+                if is_main:
+                    visualizer.print_current_losses(epoch, epoch_iter, host, t_comp, t_data)
+                    visualizer.log_scalars("train", host, total_iters)
 
-            if getattr(opt, "display_freq", 0) and total_iters % opt.display_freq < opt.batch_size:
+            if is_main and getattr(opt, "display_freq", 0) and \
+                    total_iters % opt.display_freq < opt.batch_size:
                 _save_web_visuals(state, batch, cfg, run_dir, epoch, total_iters, visualizer)
 
             if total_iters % opt.save_latest_freq < opt.batch_size:
@@ -253,11 +282,16 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
             ckpt.save_checkpoint(state, run_dir, epoch)
 
         if eval_dataset is not None and epoch % getattr(opt, "eval_freq", 15) == 0:
-            avg = evaluate_model(state.gen, eval_dataset, cfg,
-                                 out_dir=os.path.join(run_dir, "eval_imgs"), epoch=epoch)
+            # every rank evaluates the whole split on its replica; rank 0's
+            # averages go to all, so the plateau policy's metric, and the
+            # learning rate, stay the same on every rank
+            avg = evaluate_model(state.gen, eval_dataset, cfg, epoch=epoch,
+                                 out_dir=os.path.join(run_dir, "eval_imgs") if is_main else None)
+            avg = _from_rank0(avg, dev)
             if avg:
                 last_metric = -avg["ssim"]  # plateau policy input (minimized)
-                visualizer.log_scalars("eval", avg, epoch)
+                if is_main:
+                    visualizer.log_scalars("eval", avg, epoch)
                 print(
                     f"epoch[{epoch}] SSIM: {avg['ssim']:.4f} PSNR: {avg['psnr']:.2f} "
                     f"Dice: {avg['dice']:.4f} IoU: {avg['iou']:.4f} DiffH: {avg['diff_h']:.2f}"
@@ -272,7 +306,18 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
     if losses is not None:
         host = _check_finite(losses, state.step)
         print("final losses: " + " ".join(f"{k}: {v:.3f}" for k, v in host.items()))
+    distributed.check_replicated(nets, f"networks at step {state.step}")
     return state, cfg
+
+
+def _from_rank0(avg, dev):
+    """Rank 0's eval averages on every rank (one broadcast); the identity in
+    one process."""
+    if not distributed.is_multiprocess() or not avg:
+        return avg
+    vals = torch.tensor([avg[k] for k in sorted(avg)], dtype=torch.float64, device=dev)
+    torch.distributed.broadcast(vals, 0)
+    return dict(zip(sorted(avg), vals.tolist()))
 
 
 def _check_finite(losses, step):

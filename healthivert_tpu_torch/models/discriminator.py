@@ -12,6 +12,13 @@ statistics as r = 0.9 r + 0.1 batch, with the *biased* batch variance
 (torch's own BatchNorm2d would use the unbiased one). A forward may be told
 not to update them (`update_stats=False`): the generator's loss head reads
 the discriminators that way, and the JAX step throws that update away.
+
+Under a process group of several ranks the statistics are those of the
+global batch, as flax computes them under GSPMD (JAX
+models/discriminator.py:8-14): one differentiable all_reduce of the local
+float32 sums of x and x^2 and the count, var = max(E[x^2] - E[x]^2, 0)
+(flax's fast variance); the gradient flows through the global statistics.
+nn.SyncBatchNorm is not used: it gathers with all_gather.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import distributed
 from .layers import normal_init, weight_init
 
 
@@ -39,12 +47,35 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, update_stats: bool = True):
         x = x.float()
+        if distributed.is_multiprocess():
+            return self._global_batch(x, update_stats)
         y = F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
         if update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
-                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+                self._update(mean, var)
+        return y
+
+    @torch.no_grad()
+    def _update(self, mean, var):
+        self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+        self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+
+    def _global_batch(self, x, update_stats):
+        """Normalise with the statistics of the batch over all ranks, as
+        flax's _compute_stats and _normalize do; every rank updates its
+        running statistics with the same global mean and variance."""
+        c = x.shape[1]
+        count = x.new_full((1,), x.numel() // c)
+        sums = distributed.all_reduce_sum(
+            torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)), count]))
+        mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean[None, :, None, None]) * mul[None, :, None, None] \
+            + self.bias[None, :, None, None]
+        if update_stats:
+            self._update(mean.detach(), var.detach())
         return y
 
 

@@ -7,8 +7,14 @@ Counterpart of healthivert_tpu/models/pix2pix.py: `Pix2PixConfig` (:46-125),
 calibration (`INT8_CALIB_PERCENTILE`, `calib_to_quant`, `merge_calib`,
 `calibrate_int8`, :285-373). The JAX `_d_forward` (:375-383) is the
 discriminators' own forward here, whose `update_stats` flag stands for the
-mutable batch_stats collection. `remat`, `vmap_discriminators` and the seg
-discriminator are not ported yet.
+mutable batch_stats collection. The seg discriminator is not ported yet.
+
+Under a process group of several ranks (parallel/distributed.py) each rank
+holds its slice of the global batch and the step equals the JAX step on the
+whole batch sharded over a `data` mesh: the discriminators' BatchNorm takes
+global statistics, the masked L1 divides by the global mask count, every
+gradient is averaged over the ranks before its optimizer step, and the
+returned losses are the means over the ranks, the same on every rank.
 
 int8 is an inference mode of the generator (the discriminators run bf16;
 training refuses it). Its calibration statistics and static scales are flat
@@ -37,8 +43,10 @@ from typing import Dict
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import geometry as geo
+from ..parallel import distributed
 from ..ops.image import dice_coeff, sobel_edges
 from ..utils.device import resolve_device
 from ..utils.weights import load_npz_state_dict
@@ -77,8 +85,11 @@ class Pix2PixConfig:
     compute_dtype: str = "float32"  # float32 | bfloat16 | int8; parameters stay
     # float32; int8 = post-training-quantized generator convs, inference only
     compute_offsets: bool = False  # attention argmax offsets (flow viz)
+    # the JAX package's stacked, vmapped D1-D3 updates: a layout switch that
+    # runs here as the three sequential updates (PyTorch has no grouped-conv
+    # lowering to choose); it needs inputs of one shape, so not crop_d3
     vmap_discriminators: bool = False
-    remat: bool = False
+    remat: bool = False  # recompute the generator forward in the backward
     gan_head_preupdate: bool = True
     crop_d3: bool = True
 
@@ -88,11 +99,9 @@ class Pix2PixConfig:
                 f"compute_dtype={self.compute_dtype!r}: the port runs "
                 f"{sorted(_DTYPES)}"
             )
-        for unported, what in ((self.remat, "remat=True"),
-                               (self.vmap_discriminators, "vmap_discriminators=True"),
-                               (self.net_d == "seg", "net_d='seg'")):
-            if unported:
-                raise NotImplementedError(f"{what} is not ported yet (queued in ROADMAP.md)")
+        if self.net_d == "seg":
+            raise NotImplementedError("net_d='seg' is not ported yet (queued in ROADMAP.md "
+                                      "section 1 item 8, models/legacy.py)")
 
     @property
     def module_dtype(self):
@@ -333,7 +342,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
     its graph is freed early); otherwise after them. The fakes reach the
     discriminator updates detached, and each discriminator sees its fake
     batch and then its real batch in two forwards (BatchNorm statistics are
-    per forward). u advances from the pre-update generator weights."""
+    per forward). u advances from the pre-update generator weights.
+
+    remat wraps the generator forward in a non-reentrant activation
+    checkpoint: the backward runs it again instead of keeping its
+    activations."""
+    if cfg.crop_d3 and cfg.vmap_discriminators:
+        raise ValueError("crop_d3 is incompatible with vmap_discriminators "
+                         "(the three D inputs no longer share shapes)")
     gen, discs = state.gen, (state.d1, state.d2, state.d3)
     opts_d = (state.opt_d1, state.opt_d2, state.opt_d3)
     for opt in (state.opt_g, *opts_d):
@@ -344,9 +360,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
     losses = {}
 
     gen.zero_grad(set_to_none=True)
-    f = generator_forward(gen, batch, cfg)
-    outs = (f["fake_b"], f["fake_b_coarse"], f["gen"].coarse_seg, f["gen"].fine_seg,
-            f["pred1_h"], f["pred2_h"])
+
+    def g_outputs():
+        f = generator_forward(gen, batch, cfg)
+        return (f["fake_b"], f["fake_b_coarse"], f["gen"].coarse_seg, f["gen"].fine_seg,
+                f["pred1_h"], f["pred2_h"])
+
+    outs = checkpoint(g_outputs, use_reentrant=False) if cfg.remat else g_outputs()
     fake_b, fine_seg = outs[0], outs[3]
 
     fine_seg_bin = (fine_seg > 0.5).to(fine_seg.dtype)
@@ -367,7 +387,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
             heads = (fb, seg_bin, crop(mask * fb * center))
             l_gan = sum(gan_loss(d(x, update_stats=False), True, cfg.gan_mode)
                         for d, x in zip(discs, heads)) / 6.0
-        mask_count = torch.count_nonzero(mask).float()
+        # the global batch's count: each rank's mean L1 then averages to it
+        mask_count = distributed.all_reduce_sum(torch.count_nonzero(mask).float())
         l_l1 = (
             (torch.mean(torch.abs(fb - full)) + torch.mean(torch.abs(fbc - full)))
             * 0.5
@@ -394,6 +415,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
         l_fake = gan_loss(d(fake.detach()), False, cfg.gan_mode)
         l_real = gan_loss(d(real), True, cfg.gan_mode)
         ((l_fake + l_real) * 0.5).backward()
+        distributed.average_gradients(d)
         opt.step()
         losses[f"D_fake_{i}"], losses[f"D_real_{i}"] = l_fake.detach(), l_real.detach()
 
@@ -401,9 +423,15 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
         g_total, g_losses = g_loss_head()
 
     _update_sn_tree(gen)  # from the weights before G's update
+    distributed.average_gradients(gen)
     state.opt_g.step()
     losses.update({k: v.detach() for k, v in g_losses.items()})
     losses["G_total"] = g_total.detach()
+    if distributed.is_multiprocess():
+        # one all_reduce: every rank returns the global losses, so that a
+        # non-finite loss stops all ranks at the same step
+        mean = distributed.all_reduce_mean(torch.stack(list(losses.values())))
+        losses = dict(zip(losses, mean.unbind()))
     state.step += 1
     return state, losses
 

@@ -98,7 +98,7 @@ def test_unported_options_raise(weights):
     ct, labels, cam = _spine()
     gen, cfg = _port_gen(weights), Pix2PixConfig(ngf=4, image_size=64)
     vols = [(ct, labels, 20, cam)]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh is parallel.mesh's
         infer3d.synthesize_volumes(gen, cfg, vols, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="int8"):
         infer3d.synthesize_volumes(gen, cfg, vols, quant="auto", device="cpu")

@@ -5,7 +5,9 @@ train CLI's known_only second parse of the eval split) `vars(opt)` equals
 the JAX package's, apart from the port's `device`, and the saved
 {phase}_opt.txt is the same text byte for byte. --gpu_ids -1 selects the
 CPU; the default (card 0) raises without a card. Each flag whose feature
-the port lacks raises NotImplementedError naming ROADMAP.md.
+the port lacks (--netD seg, a model mesh axis, an unknown --lr_policy)
+raises NotImplementedError naming ROADMAP.md; the multi-GPU flags (--mesh
+data:2, several --gpu_ids) and --remat parse, and the CLIs take them.
 """
 
 import pytest
@@ -83,11 +85,42 @@ def test_gpu_ids_select_the_device(tmp_path):
         popts.device_from_gpu_ids("0,x")
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mesh", "data:2"], ["--mesh", "data:-1,model:2"],
-    ["--remat"], ["--netD", "seg"], ["--lr_policy", "exponential"], ["--gpu_ids", "0,1"],
-], ids=lambda a: " ".join(a))
+FLAGS = [["--mesh", "data:2"], ["--mesh", "data:-1,model:2"], ["--remat"], ["--netD", "seg"],
+         ["--lr_policy", "exponential"], ["--gpu_ids", "0,1"]]
+RAISE = ("--mesh data:-1,model:2", "--netD seg", "--lr_policy exponential")
+
+
+@pytest.mark.parametrize("argv", FLAGS, ids=lambda a: " ".join(a))
 def test_unported_flags_raise(tmp_path, monkeypatch, argv):
+    """The flags of features still queued raise; the cases of ROADMAP.md
+    section 1 item 7 (multi-GPU) and --remat, which raised until it was
+    ported, now parse and the CLIs take them."""
+    from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
+    from healthivert_tpu_torch.cli.train import check_mesh
+    from healthivert_tpu_torch.engine.train_loop import config_from_opt
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        popts.TrainOptions().parse(argv + ["--checkpoints_dir", str(tmp_path)], save=False)
+    parse = lambda: popts.TrainOptions().parse(
+        argv + ["--checkpoints_dir", str(tmp_path)], save=False)
+    if " ".join(argv) in RAISE:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            parse()
+        return
+    opt = parse()
+    if argv[0] == "--mesh":  # the train CLI takes it under torchrun, else names it
+        check_mesh(opt.mesh, 2)
+        with pytest.raises(SystemExit, match="torchrun --standalone --nproc_per_node 2"):
+            check_mesh(opt.mesh, 1)
+    elif argv[0] == "--remat":
+        assert config_from_opt(opt).remat
+    else:  # each torchrun process takes its card; the 3D CLI shards over both
+        assert opt.device == torch.device("cuda:0")
+        monkeypatch.setenv("LOCAL_RANK", "1")
+        assert parse().device == torch.device("cuda:1")
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+        mesh = e3_cli.card_mesh(opt)
+        assert mesh.shape == {"data": 2}
+        assert mesh.devices == (torch.device("cuda:0"), torch.device("cuda:1"))
+        monkeypatch.setenv("LOCAL_RANK", "2")
+        with pytest.raises(SystemExit, match="one id per process"):
+            parse()

@@ -66,6 +66,132 @@ def random_train_trees(ngf=4, ndf=8, image_size=64, seed=0):
             for f in fields}
 
 
+def draw_jax_train_state(jcfg, seed=0):
+    """A JAX TrainState with variables drawn by numpy in flax's shapes:
+    generator kernels N(0, 1/fan_in), discriminator kernels N(0, 0.02),
+    BatchNorm scales N(1, 0.02), small non-zero biases, unit u vectors,
+    running statistics away from their init; zero Adam states."""
+    from healthivert_tpu.models import pix2pix as jpix
+
+    shapes = jax.eval_shape(lambda: jpix.init_state(jax.random.PRNGKey(0), jcfg, 2))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, s):
+        field = path[0].name
+        leaf = getattr(path[-1], "key", None)
+        if not field.endswith(("params", "sn", "stats")):
+            return np.zeros(s.shape, s.dtype)  # step, Adam count/mu/nu
+        if field == "g_sn":
+            u = rng.standard_normal(s.shape)
+            return (u / np.linalg.norm(u)).astype(np.float32)
+        if leaf == "kernel":
+            std = 1 / np.sqrt(np.prod(s.shape[:-1])) if field == "g_params" else 0.02
+            return (std * rng.standard_normal(s.shape)).astype(np.float32)
+        if leaf == "scale":
+            return (1 + 0.02 * rng.standard_normal(s.shape)).astype(np.float32)
+        if leaf == "mean":
+            return (0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        if leaf == "var":
+            return rng.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.01 * rng.standard_normal(s.shape)).astype(np.float32)  # biases
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def _np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def jax_state_dicts(js):
+    """Port state dicts of the four networks of a JAX TrainState."""
+    from healthivert_tpu_torch.utils.weights import (
+        flax_discriminator_to_state_dict,
+        flax_to_state_dict,
+    )
+
+    return {
+        "g": flax_to_state_dict(_np(js.g_params), _np(js.g_sn)),
+        "d1": flax_discriminator_to_state_dict(_np(js.d1_params), _np(js.d1_stats)),
+        "d2": flax_discriminator_to_state_dict(_np(js.d2_params), _np(js.d2_stats)),
+        "d3": flax_discriminator_to_state_dict(_np(js.d3_params), _np(js.d3_stats)),
+    }
+
+
+def jax_adam_grads(js):
+    """The JAX step's gradients, from Adam's first moment after one step."""
+    from healthivert_tpu_torch.utils.weights import (
+        flax_discriminator_to_state_dict,
+        flax_to_state_dict,
+    )
+
+    g = lambda opt: jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.5, opt.mu)
+    return {
+        "g": flax_to_state_dict(g(js.opt_g), {}),
+        "d1": flax_discriminator_to_state_dict(g(js.opt_d1)),
+        "d2": flax_discriminator_to_state_dict(g(js.opt_d2)),
+        "d3": flax_discriminator_to_state_dict(g(js.opt_d3)),
+    }
+
+NETS = ("g", "d1", "d2", "d3")
+
+
+def check_sn_and_stats(got_sd, want_sd):
+    """A step's new spectral-norm vectors u (atol 1e-5 on unit vectors) and
+    the discriminators' running statistics (atol 1e-5 on the mean, rtol
+    1e-4 on the variance) against the JAX step's."""
+    us = [k for k in want_sd["g"] if k.endswith(".u")]
+    assert us
+    for k in us:
+        np.testing.assert_allclose(got_sd["g"][k].numpy(), want_sd["g"][k].numpy(),
+                                   atol=1e-5, rtol=0, err_msg=k)
+    for net in NETS[1:]:
+        stats = [k for k in want_sd[net] if ".running_" in k]
+        assert stats
+        for k in stats:
+            w, g = want_sd[net][k].numpy(), got_sd[net][k].numpy()
+            if k.endswith("running_mean"):
+                np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=f"{net} {k}")
+            else:
+                np.testing.assert_allclose(g, w, rtol=1e-4, atol=0, err_msg=f"{net} {k}")
+
+
+def check_grads(got, want):
+    """Every parameter gradient, per tensor: |got - want| <= 1e-3 * G +
+    1e-3 * |want|, G the largest gradient of that network."""
+    for net in NETS:
+        assert set(got[net]) == set(want[net]), net
+        scale = max(float(w.abs().max()) for w in want[net].values())
+        assert scale > 0, net
+        for k, w in want[net].items():
+            err = (got[net][k] - w).abs()
+            tol = 1e-3 * scale + 1e-3 * w.abs()
+            assert bool((err <= tol).all()), (net, k, float(err.max()), scale)
+
+
+def check_deltas(before, after, want_sd, got_g, want_g, lr):
+    """One Adam step's parameter deltas against the JAX step's: within
+    1e-3 * lr, except where the gradient sits at its rounding floor (|g| <=
+    1e-5 * G in either package), where the update's sign may flip; those
+    elements stay under 0.5 % of each network's parameters. Returns
+    {net: (flipped elements, parameters)}."""
+    report = {}
+    for net in NETS:
+        g_scale = max(float(w.abs().max()) for w in want_g[net].values())
+        flips = total = 0
+        for k in got_g[net]:
+            d_want = want_sd[net][k] - before[net][k]
+            d_got = after[net][k] - before[net][k]
+            floor = (want_g[net][k].abs() <= 1e-5 * g_scale) | (got_g[net][k].abs() <= 1e-5 * g_scale)
+            bad = (d_got - d_want).abs() > 1e-3 * lr
+            assert not bool((bad & ~floor).any()), (net, k)
+            flips += int((bad & floor).sum())
+            total += d_got.numel()
+            assert float(d_got.abs().max()) <= lr * (1 + 1e-3)
+        report[net] = (flips, total)
+        assert flips <= 0.005 * total, (net, flips, total)
+    return report
+
+
 def g_tree_to_reference_sd(params, sn):
     """flax generator trees -> the reference's torch key space (spectral-norm
     convs as weight_orig / weight_u / weight_v, Linear weights (out, in))."""
@@ -136,3 +262,4 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
