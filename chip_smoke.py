@@ -93,6 +93,27 @@ JSON line:
                 step, finite losses, every parameter moved; one more step
                 under torch.profiler: its device time and the attention
                 route's share of it
+ 11b. legacy   the rest of the JAX package on the card (phase_legacy):
+                (a) the shipped recipe with --netD seg (the seg
+                discriminators of models/legacy.py, float32 whatever the
+                dtype), bf16 2 + 10 steps beside the recipe's basic
+                discriminators run the same way, and float32 2 + 5 steps,
+                64 synthetic examples built ahead; ms per step, its range,
+                peak device bytes, one launch of #1 and of #2 a step on the
+                dtype's route, every parameter moved but the seg decoder's
+                (no loss reaches it: Adam steps it by exactly 0); one
+                float32 seg step at lr 0, batch 2, card against CPU under
+                grad_f32's gates and the discriminators' running statistics
+                (STATS_TOL); (b) unet_256, resnet_9blocks and
+                DualHeadUNet(5, 64) at batch 8, 256 x 256, float32, in
+                training and then eval mode, card against CPU within 1e-4
+                of the largest |output|, ms per forward; (c) Prewitt and
+                Canny at batch 64, 256 x 256 (atol 1e-5; a Canny pixel may
+                differ only on a 45 degree rounding boundary of its
+                orientation, counted), gradient_penalty through a basic
+                PatchGAN at ndf 64, batch 8 (rtol 1e-4), the s2d kernels
+                bit-equal and their convs against the dense ones (1e-5 of
+                the largest |output|)
  12. cli        the port's three command-line entry points on a cohort of 8
                 patients of 5 vertebrae (256 x 256 x 64) written as NIfTI with
                 the port's own writer, with the counts set to 0 just before
@@ -194,13 +215,16 @@ JSON line:
  18. dist       multi-GPU on the one card (two ranks cannot share a card
                 under NCCL: "Duplicate GPU detected"), after the timings so
                 that no earlier phase's numbers move: (a) synthesize_volumes
-                sharded over make_mesh("data:2", [cuda:0, cuda:0]) at batch
-                64 bit-equal to mesh=None at batch 32 (each shard the shape
-                of an unsharded dispatch), one tensor-core launch a
+                sharded over make_mesh("data:2", [cuda:0, cuda:0]) and over
+                make_mesh("data:2,model:2", [cuda:0] * 4) at batch 64
+                bit-equal to mesh=None at batch 32 (each shard the shape of
+                an unsharded dispatch; the model axis replicates, so it
+                dispatches as data:2 does), one tensor-core launch a
                 dispatch, counted from 0 before each call; (b) run_training
                 on the float32 recipe (TF32 off), global batch 32, 2 steps,
-                as two ranks on cuda:0 over gloo (tests/torch_dist_worker.py,
-                16 a rank) against one process at 32: the ranks bit-equal,
+                as two ranks on cuda:0 over gloo (tests/torch_dist_worker.py)
+                on --mesh data:2 (16 a rank) and on data:1,model:2 (32 a
+                rank), each against one process at 32: the ranks bit-equal,
                 one float32-route forward and backward launch a step on
                 each, losses rtol 1e-4, the first step's gradients within
                 3e-3 of each network's largest, parameters as SUM_RTOL
@@ -302,6 +326,10 @@ BWD_TOL = 1e-4
 # 128 output positions of binary-image patches) cancels to far below its
 # terms: seen 1.5e-3 there, at most 2.3e-4 in G, D1 and D3.
 LOSS_RTOL, GRAD_TOL = 1e-4, 3e-3
+# the seg discriminators' running statistics after one step, card vs CPU
+STATS_TOL = {"mean_atol": 1e-5, "var_rtol": 1e-4}
+# the parameters of the seg discriminator's decoder, which no loss reaches
+SEG_DECODER = re.compile(r"(dec\d+(_bn)?|seg_out)\.")
 # ablation, each mode vs its plain version: attn_ablate.ablate_within. The
 # candidates against full, in the entry point's bf16 run: at most two bf16
 # ulps of the largest output (the outputs round to bf16).
@@ -774,15 +802,17 @@ def phase_fwd_f32():
     emit("fwd_f32", batch=2, max_abs_err=errs, tolerances=FWD_TOL)
 
 
-def phase_grad_f32():
+def phase_grad_f32(net_d="basic", phase="grad_f32"):
     """One train_step at lr=0 on the card and on the CPU from the same
-    weights (shipped generator, seeded discriminators) and batch. D2 and
-    the edge loss read the binarised fine seg map, so the check first
-    requires card and CPU to put every pixel on the same side of 0.5."""
+    weights (shipped generator, seeded discriminators of --netD `net_d`) and
+    batch. D2 and the edge loss read the binarised fine seg map, so the
+    check first requires card and CPU to put every pixel on the same side
+    of 0.5. At net_d="seg" the discriminators' running statistics are held
+    too (STATS_TOL)."""
     float32_exact()
-    cfg = Pix2PixConfig(ngf=16, ndf=64, image_size=256, compute_dtype="float32")
+    cfg = Pix2PixConfig(ngf=16, ndf=64, image_size=256, compute_dtype="float32", net_d=net_d)
     batch = SyntheticDataset(batch_size=2, seed=0, n_volumes=2).sample_batch()
-    runs, seg = {}, {}
+    runs, seg, stats = {}, {}, {}
     for dev in ("cuda", "cpu"):
         state = pix2pix.init_state(cfg, seed=0, device=dev, gen_npz=PRETRAINED_NPZ)
         with torch.no_grad():
@@ -797,6 +827,8 @@ def phase_grad_f32():
         grads = {n: {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
                  for n, m in nets.items()}
         runs[dev] = ({k: float(v) for k, v in losses.items()}, grads)
+        stats[dev] = {f"{n}.{k}": v.detach().cpu() for n, m in nets.items() if n != "G"
+                      for k, v in m.state_dict().items() if ".running_" in k}
     flips = int(((seg["cuda"] > 0.5) != (seg["cpu"] > 0.5)).sum())
     (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["cuda"], runs["cpu"]
     loss_err = {k: abs(l_gpu[k] - v) / max(abs(v), 1e-12) for k, v in l_cpu.items()}
@@ -809,14 +841,27 @@ def phase_grad_f32():
         worst[net] = {"max_err_over_scale": ratios[name], "worst_tensor": name,
                       "its_max_abs": float(g_cpu[net][name].abs().max()), "scale": scale,
                       "tensors": len(g_cpu[net])}
-    emit("grad_f32", batch=2, losses_cuda=l_gpu, loss_rel_err=loss_err, grads=worst,
-         seg_pixels_across_half=flips, tolerances={"loss_rtol": LOSS_RTOL, "grad": GRAD_TOL})
-    check(flips == 0, f"grad_f32: card and CPU binarise {flips} fine-seg pixels differently")
+    extra = {}
+    if net_d == "seg":
+        mean_err = max(max_err(v, stats["cpu"][k]) for k, v in stats["cuda"].items()
+                       if k.endswith("mean"))
+        var_rel = max(float(((v - stats["cpu"][k]).abs() / stats["cpu"][k].abs()).max())
+                      for k, v in stats["cuda"].items() if k.endswith("var"))
+        extra = dict(running_mean_max_abs_err=mean_err, running_var_max_rel_err=var_rel,
+                     stats_tensors=len(stats["cuda"]), stats_tolerances=STATS_TOL)
+    emit(phase, batch=2, net_d=net_d, losses_cuda=l_gpu, loss_rel_err=loss_err, grads=worst,
+         seg_pixels_across_half=flips, tolerances={"loss_rtol": LOSS_RTOL, "grad": GRAD_TOL},
+         **extra)
+    check(flips == 0, f"{phase}: card and CPU binarise {flips} fine-seg pixels differently")
     for k, e in loss_err.items():
-        check(e <= LOSS_RTOL, f"grad_f32: loss {k} rel err {e}")
+        check(e <= LOSS_RTOL, f"{phase}: loss {k} rel err {e}")
     for net, w in worst.items():
-        check(w["scale"] > 0, f"grad_f32: {net} has no gradient")
-        check(w["max_err_over_scale"] <= GRAD_TOL, f"grad_f32: {net} gradient err {w}")
+        check(w["scale"] > 0, f"{phase}: {net} has no gradient")
+        check(w["max_err_over_scale"] <= GRAD_TOL, f"{phase}: {net} gradient err {w}")
+    if extra:
+        check(extra["running_mean_max_abs_err"] <= STATS_TOL["mean_atol"]
+              and extra["running_var_max_rel_err"] <= STATS_TOL["var_rtol"],
+              f"{phase}: running statistics {extra}")
 
 
 def phase_fwd_bf16(gen, cfg, batch_size=64, reps=5):
@@ -1933,20 +1978,26 @@ TF32_KERNELS = ("lp_gemm_tf32", "pc_gemm_tf32", "split_kernel", "patch_norm", "f
                 "split_rows", "softmax_bwd", "fuse_adj_tc", "dn2_kernel")
 
 
-def phase_train(dtype="bfloat16", warmup=2, timed=20):
+def phase_train(dtype="bfloat16", warmup=2, timed=20, net_d="basic", profile=True, cache=None):
     """run_training on the shipped recipe (its own dtype bf16, or float32,
-    the train CLI's default); counts read per step. Two more steps after
-    the timed ones run under torch.profiler, the first unmeasured (see
-    MEASURED). The launch counts are set to 0 just before run_training and
-    read just after. Returns the backward's launches on the dtype's route."""
+    the train CLI's default; its discriminators, or --netD `net_d`); counts
+    read per step. With `profile`, two more steps after the timed ones run
+    under torch.profiler, the first unmeasured (see MEASURED). `cache`: the
+    synthetic examples built ahead (the recipe's own when None). The launch
+    counts are set to 0 just before run_training and read just after.
+    Returns the emitted record (with the backward's launches on the dtype's
+    route)."""
     from torch.profiler import record_function
 
     float32_exact()
     opt = read_recipe()
     check(opt.batch_size == 32 and opt.compute_dtype == "bfloat16" and opt.netD == "basic",
           f"recipe: {opt.batch_size} {opt.compute_dtype} {opt.netD}")
-    opt.compute_dtype = dtype
+    opt.compute_dtype, opt.netD = dtype, net_d
+    if cache is not None:
+        opt.synthetic_cache = cache
     counter = ROUTE_COUNTER[getattr(torch, dtype)]
+    extra = 2 if profile else 0
     per_step, marks, losses_seen = [], [], []
     prof, measured = kernel_profiler(), record_function(MEASURED)
 
@@ -1955,6 +2006,8 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
         torch.cuda.synchronize()  # the step's pageable batch copy waits for the card anyway
         marks.append(time.perf_counter())
         losses_seen.append(torch.stack([v.detach().float() for v in losses.values()]))
+        if not profile:
+            return
         if step == warmup + timed:
             prof.start()
         elif step == warmup + timed + 1:
@@ -1969,15 +2022,17 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
         fn.launches = fn.tc_launches = fn.tf32_launches = 0
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ckdir:
         opt.checkpoints_dir = ckdir  # logs, checkpoints
-        state, cfg = run_training(opt, max_steps=warmup + timed + 2, device="cuda",
+        state, cfg = run_training(opt, max_steps=warmup + timed + extra, device="cuda",
                                   on_step=on_step)
     torch.cuda.synchronize()
     fwd, bwd = getattr(attention_v2, counter), getattr(attention_v2_bwd, counter)
     peak = torch.cuda.max_memory_allocated()
     steps = [(f1 - f0, b1 - b0) for (f0, b0), (f1, b1) in zip([(0, 0)] + per_step, per_step)]
-    name = "train_" + {"bfloat16": "bf16", "float32": "f32"}[dtype]
-    check(cfg.compute_dtype == dtype, f"{name}: config dtype {cfg.compute_dtype}")
-    check(state.step == warmup + timed + 2, f"{name}: {state.step} steps")
+    name = ("train_" if profile else f"legacy_{net_d}_") + {"bfloat16": "bf16",
+                                                            "float32": "f32"}[dtype]
+    check(cfg.compute_dtype == dtype and cfg.net_d == net_d,
+          f"{name}: config {cfg.compute_dtype} {cfg.net_d}")
+    check(state.step == warmup + timed + extra, f"{name}: {state.step} steps")
     finite = torch.isfinite(torch.stack(losses_seen)).all(dim=1).tolist()
     check(all(finite), f"{name}: non-finite losses at steps {[i + 1 for i, f in enumerate(finite) if not f]}")
     check(all(d == (1, 1) for d in steps), f"{name}: {counter} per step {steps}")
@@ -1989,17 +2044,25 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
     for net in ("gen", "d1", "d2", "d3"):
         a, b = getattr(start, net), getattr(state, net)
         for (k, p0), p1 in zip(a.named_parameters(), b.parameters()):
-            check(not torch.equal(p0, p1), f"{name}: {net}.{k} did not move")
+            if SEG_DECODER.match(k) and net_d == "seg":
+                # no loss reaches the seg decoder: Adam steps it by exactly 0
+                check(torch.equal(p0, p1), f"{name}: the seg decoder's {net}.{k} moved")
+            else:
+                check(not torch.equal(p0, p1), f"{name}: {net}.{k} did not move")
     seconds = marks[warmup + timed - 1] - marks[warmup - 1]
     step_ms = [(b - a) * 1e3 for a, b in zip(marks[warmup - 1:warmup + timed - 1],
                                               marks[warmup:warmup + timed])]
-    emit(name, recipe=str(RECIPE.relative_to(RECIPE.parents[2])),
-         batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
-         timed_steps=timed, ms_per_step=seconds / timed * 1e3,
-         slices_per_s=opt.batch_size * timed / seconds, step_ms=step_ms,
-         step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
-         max_memory_allocated_bytes=peak,
-         fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
+    record = dict(recipe=str(RECIPE.relative_to(RECIPE.parents[2])), net_d=net_d,
+                  batch=opt.batch_size, dtype=cfg.compute_dtype, warmup_steps=warmup,
+                  timed_steps=timed, synthetic_cache=opt.synthetic_cache,
+                  ms_per_step=seconds / timed * 1e3,
+                  slices_per_s=opt.batch_size * timed / seconds, step_ms=step_ms,
+                  step_ms_min_median_max=[min(step_ms), float(np.median(step_ms)), max(step_ms)],
+                  max_memory_allocated_bytes=peak,
+                  fwd_launches=fwd, bwd_launches=bwd, launches_per_step=steps)
+    emit(name, **record)
+    if not profile:
+        return record
     times, missing = measured_kernels(prof)
     summary = kernel_summary(times)
     summary.update(launches_without_kernel_record=missing)
@@ -2008,7 +2071,191 @@ def phase_train(dtype="bfloat16", warmup=2, timed=20):
         summary.update(attention_device_ms=attn, attention_share=attn / summary["device_ms"])
     emit("profile", of=f"one train step of the recipe, {dtype} (step {warmup + timed + 2}, batch "
          f"{opt.batch_size})", **summary)
-    return bwd
+    return record
+
+
+# ------------------------------------------------------------------ legacy
+
+LEGACY_CACHE = 64  # synthetic examples built ahead for phase legacy's runs
+LEGACY_BATCH = 8
+LEGACY_TOL = 1e-4  # legacy generators, card vs CPU, of the largest |output|
+EDGE_ATOL = 1e-5
+CANNY_BOUNDARY = 1e-4  # |orientation / 45 - (k + 0.5)| of an allowed exception
+GP_RTOL = 1e-4
+S2D_TOL = 1e-5  # a transformed conv against the dense one, of the largest |output|
+
+
+def legacy_seg_recipe():
+    """(a) the shipped recipe with --netD seg: bf16 at batch 32 (2 + 10
+    steps) beside the recipe's basic discriminators run the same way in the
+    same process, float32 (2 + 5 steps), every step one launch of #1 and of
+    #2 on the dtype's route; then one float32 step at lr 0, batch 2, card
+    against CPU (phase_grad_f32's gates and the running statistics)."""
+    runs = {}
+    for key, dtype, net_d, timed in (("basic_bf16", "bfloat16", "basic", 10),
+                                     ("seg_bf16", "bfloat16", "seg", 10),
+                                     ("seg_f32", "float32", "seg", 5)):
+        runs[key] = phase_train(dtype, timed=timed, net_d=net_d, profile=False,
+                                cache=LEGACY_CACHE)
+    phase_grad_f32(net_d="seg", phase="legacy_grad_f32_seg")
+    keep = ("ms_per_step", "step_ms_min_median_max", "max_memory_allocated_bytes",
+            "launches_per_step")
+    return {k: {f: r[f] for f in keep} for k, r in runs.items()}
+
+
+def _time_forward(net, x, reps=5):
+    with torch.no_grad():
+        net(x)
+        return time_events(lambda: net(x), reps)
+
+
+def legacy_networks():
+    """(b) the legacy generators at their published widths, batch 8, 256 x
+    256, float32, random weights from a seed: card against CPU in training
+    mode (batch statistics, which update the running ones) and then in eval
+    mode (the running statistics), within LEGACY_TOL of the largest
+    |output|; ms per forward on the card."""
+    from healthivert_tpu_torch.models import legacy
+
+    nets = {"unet_256": lambda: legacy.UnetGenerator(1, 1, num_downs=8, ngf=64),
+            "resnet_9blocks": lambda: legacy.ResnetGenerator(1, 1, ngf=64, n_blocks=9),
+            "dualhead_unet": lambda: legacy.DualHeadUNet(1, 1, num_downs=5, ngf=64)}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (LEGACY_BATCH, 256, 256, 1)).astype(np.float32))
+    out = {}
+    for name, make in nets.items():
+        cpu = make().init_weights(torch.Generator().manual_seed(0))
+        card = make()
+        card.load_state_dict(cpu.state_dict())
+        card.cuda()
+        rec = {}
+        for mode in ("train", "eval"):
+            for m in (cpu, card):
+                m.train(mode == "train")
+            with torch.no_grad():
+                want, got = cpu(x), card(x.cuda())
+            want = want if isinstance(want, tuple) else (want,)
+            got = got if isinstance(got, tuple) else (got,)
+            scale = max(float(w.abs().max()) for w in want)
+            err = max(max_err(g, w) for g, w in zip(got, want))
+            check(all(torch.isfinite(g).all() for g in got), f"legacy {name} {mode}: not finite")
+            check(err <= LEGACY_TOL * scale, f"legacy {name} {mode}: err {err}, scale {scale}")
+            rec[mode] = {"max_abs_err": err, "max_abs_output": scale}
+        for mode in ("train", "eval"):  # after the checks: a training forward updates statistics
+            card.train(mode == "train")
+            rec[mode]["ms_per_forward"] = _time_forward(card, x.cuda())
+        rec["params"] = sum(p.numel() for p in cpu.parameters())
+        out[name] = rec
+        del card
+    return out
+
+
+def _edge_images(b, h, w, seed=0):
+    """Noise plus a bright disc and a bar: edges in every direction."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    disc = ((yy - h / 2) ** 2 + (xx - w / 3) ** 2 < (h / 4) ** 2).astype(np.float32)
+    bar = ((xx > 3 * w // 4) & (yy > h // 4)).astype(np.float32)
+    x = 0.2 * rng.random((b, h, w, 1)).astype(np.float32)
+    x += (4.0 * disc + 2.0 * bar)[None, :, :, None]
+    x *= rng.uniform(0.2, 1.0, (b, 1, 1, 1)).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def legacy_ops():
+    """(c) the edge operators at batch 64, 256 x 256 (atol EDGE_ATOL; a
+    Canny pixel may differ only where its orientation sits on a 45 degree
+    rounding boundary, counted), gradient_penalty through a basic PatchGAN
+    at ndf 64, batch 8 (GP_RTOL, alpha drawn once and given to both), and
+    the s2d transforms at the generator's 256 x 256 shapes (kernels
+    bit-equal card vs CPU, transformed convs against the dense convs on the
+    card within S2D_TOL), each on the card against the CPU."""
+    import torch.nn.functional as F
+
+    from healthivert_tpu_torch.models.discriminator import NLayerDiscriminator
+    from healthivert_tpu_torch.models.legacy import gradient_penalty
+    from healthivert_tpu_torch.ops import edges, s2d
+
+    rec = {}
+    x = _edge_images(64, 256, 256)
+    xc = x.cuda()
+    want, got = edges.prewitt_edges(x), edges.prewitt_edges(xc)
+    rec["prewitt_max_abs_err"] = max_err(got, want)
+    check(rec["prewitt_max_abs_err"] <= EDGE_ATOL, f"prewitt err {rec['prewitt_max_abs_err']}")
+    rec["prewitt_ms"] = time_events(lambda: edges.prewitt_edges(xc), 5)
+    want, got = edges.canny_edges(x), edges.canny_edges(xc).cpu()
+    q = edges.canny_orientation(x)[1] / 45.0
+    boundary = (q - q.floor() - 0.5).abs() < CANNY_BOUNDARY
+    off = (got - want).abs() > EDGE_ATOL
+    rec.update(canny_pixels=off.numel(), canny_pixels_off=int(off.sum()),
+               canny_off_on_boundary=int((off & boundary).sum()),
+               canny_boundary_pixels=int(boundary.sum()),
+               canny_edge_pixels=int((want > 0).sum()),
+               canny_max_abs_err_off_boundary=float(((got - want).abs() * ~boundary).max()))
+    print(f"canny: {rec['canny_pixels_off']} of {rec['canny_pixels']} pixels differ card vs "
+          f"CPU, all on an orientation boundary ({rec['canny_boundary_pixels']} such pixels)",
+          flush=True)
+    check(not (off & ~boundary).any(), f"canny: pixels off a boundary differ: {rec}")
+    check(rec["canny_edge_pixels"] > 0, "canny: no edge")
+    rec["canny_ms"] = time_events(lambda: edges.canny_edges(xc), 5)
+
+    d = NLayerDiscriminator(1, 64, 3).init_weights(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(1)
+    real, fake = (torch.from_numpy(rng.standard_normal((LEGACY_BATCH, 256, 256, 1))
+                                   .astype(np.float32)) for _ in range(2))
+    alpha = torch.rand((LEGACY_BATCH, 1, 1, 1), generator=torch.Generator().manual_seed(2))
+    want = float(gradient_penalty(d, real, fake, alpha=alpha).detach())
+    d.cuda()
+    got = float(gradient_penalty(d, real.cuda(), fake.cuda(), alpha=alpha).detach())
+    rec["gradient_penalty"] = {"cuda": got, "cpu": want, "rel_err": abs(got - want) / abs(want)}
+    check(rec["gradient_penalty"]["rel_err"] <= GP_RTOL, f"gradient_penalty {rec}")
+
+    gen = torch.Generator().manual_seed(3)
+    xs = torch.randn((LEGACY_BATCH, 256, 256, 33), generator=gen).cuda()
+    conv = lambda x, w, stride, pads: F.conv2d(
+        F.pad(x.permute(0, 3, 1, 2), (pads[1][0], pads[1][1], pads[0][0], pads[0][1])),
+        w.permute(3, 2, 0, 1), stride=stride).permute(0, 2, 3, 1)
+    s2d_rec = {}
+    for k, c, f in ((3, 33, 16), (5, 16, 16), (3, 16, 32)):
+        w = torch.randn((k, k, c, f), generator=gen)
+        ws = s2d.kernel_s2d_s2d(w.cuda())
+        check(torch.equal(ws.cpu(), s2d.kernel_s2d_s2d(w)), f"kernel_s2d_s2d {k} {c} {f}")
+        p = (k - 1) // 2
+        dense = conv(xs[..., :c], w.cuda(), 1, ((p, p), (p, p)))
+        got = s2d.depth_to_space(conv(s2d.space_to_depth(xs[..., :c]), ws, 1, ((1, 1), (1, 1))))
+        err = max_err(got, dense) / float(dense.abs().max())
+        s2d_rec[f"s2d_s2d_k{k}_c{c}_f{f}"] = err
+        check(err <= S2D_TOL, f"s2d conv k{k} c{c} f{f}: {err}")
+    w = torch.randn((3, 3, 16, 32), generator=gen)
+    wd = s2d.kernel_s2d_down(w.cuda())
+    check(torch.equal(wd.cpu(), s2d.kernel_s2d_down(w)), "kernel_s2d_down")
+    dense = conv(xs[..., :16], w.cuda(), 2, ((1, 1), (1, 1)))
+    got = conv(s2d.space_to_depth(xs[..., :16]), wd, 1, ((1, 0), (1, 0)))
+    s2d_rec["s2d_down_c16_f32"] = max_err(got, dense) / float(dense.abs().max())
+    check(s2d_rec["s2d_down_c16_f32"] <= S2D_TOL, f"s2d down: {s2d_rec}")
+    b = torch.randn(16, generator=gen)
+    check(torch.equal(s2d.bias_s2d(b.cuda()).cpu(), s2d.bias_s2d(b)), "bias_s2d")
+    z = xs[:, :128, :128, :4]
+    check(torch.equal(s2d.upsample2x_as_s2d(z).cpu(), s2d.upsample2x_as_s2d(z.cpu())),
+          "upsample2x_as_s2d")
+    rec["s2d_rel_err"] = s2d_rec
+    return rec
+
+
+def phase_legacy():
+    """The legacy networks and the rest of the package on the card: (a)
+    the --netD seg recipe, (b) the legacy generators, (c) the edges, the
+    gradient penalty and the s2d transforms; each time beside the card's
+    name and power limit."""
+    float32_exact()
+    t0 = time.perf_counter()
+    parts = {"seg_recipe": legacy_seg_recipe(), "generators": legacy_networks(),
+             "ops": legacy_ops()}
+    emit("legacy", card=CARD[0], seconds=time.perf_counter() - t0, **parts,
+         tolerances={"generators_of_max_output": LEGACY_TOL, "edges_atol": EDGE_ATOL,
+                     "canny_boundary": CANNY_BOUNDARY, "gradient_penalty_rtol": GP_RTOL,
+                     "s2d_of_max_output": S2D_TOL, "stats": STATS_TOL,
+                     "loss_rtol": LOSS_RTOL, "grad": GRAD_TOL})
 
 
 def kernel_profiler():
@@ -2455,9 +2702,10 @@ def dist_synthesis():
     ct, labels, cam = make_spine_volume(np.random.default_rng(0), fractured={20: 0.6})
     volumes = [(ct, labels, v, cam) for v in (19, 20, 21)]
     mesh = make_mesh("data:2", devices=["cuda:0", "cuda:0"])
+    model = make_mesh("data:2,model:2", devices=["cuda:0"] * 4)
     runs = {}
     for name, batch, m in (("unsharded", 32, None), ("sharded", 64, mesh),
-                           ("unsharded_again", 32, None)):
+                           ("model_axis", 64, model), ("unsharded_again", 32, None)):
         attention_v2.launches = attention_v2.tc_launches = 0
         infer3d._forward.dispatches = 0
         torch.cuda.synchronize()
@@ -2471,10 +2719,16 @@ def dist_synthesis():
               f"dist {name} synthesis: tensor-core launches {launches}, all "
               f"{attention_v2.launches}, dispatches {dispatches}")
         runs[name] = (out, ms, dispatches)
-    for (a_ct, a_lb), (b_ct, b_lb) in zip(runs["sharded"][0], runs["unsharded"][0]):
-        check(np.array_equal(a_ct, b_ct) and np.array_equal(a_lb, b_lb),
-              "dist: sharded synthesis differs from the unsharded one")
+    for sharded in ("sharded", "model_axis"):
+        for (a_ct, a_lb), (b_ct, b_lb) in zip(runs[sharded][0], runs["unsharded"][0]):
+            check(np.array_equal(a_ct, b_ct) and np.array_equal(a_lb, b_lb),
+                  f"dist: the {sharded} synthesis differs from the unsharded one")
+    # a model axis replicates: each data shard runs once, as on data:2
+    check(runs["model_axis"][2] == runs["sharded"][2],
+          f"dist: data:2,model:2 dispatched {runs['model_axis'][2]}, data:2 "
+          f"{runs['sharded'][2]}")
     return {"mesh": dict(mesh.shape), "devices": [str(d) for d in mesh.devices],
+            "model_mesh": dict(model.shape), "model_mesh_devices": len(model.devices),
             "bit_equal": True,
             **{f"{k}_ms": v[1] for k, v in runs.items()},
             **{f"{k}_dispatches": v[2] for k, v in runs.items()}}
@@ -2489,30 +2743,45 @@ def dist_recipe(tmp, name):
     return opt
 
 
-def dist_training(tmp, quiet):
-    """(b) run_training on the float32 recipe, global batch 32: two ranks on
-    cuda:0 over gloo (16 a rank) against one process at 32. Returns the
-    part's record."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from torch_dist_worker import Ranks, run_training_first_grads
+def two_ranks(tmp, name, mesh):
+    """run_training on the float32 recipe, global batch 32, as two ranks on
+    cuda:0 over gloo on --mesh `mesh`: the ranks bit-equal, one
+    float32-route launch of #1 and of #2 a step on each. Returns rank 0's
+    result and the wall seconds."""
+    from torch_dist_worker import Ranks
 
-    (tmp / "ranks").mkdir()
-    opt = dist_recipe(tmp, "ranks")
+    (tmp / name).mkdir()
+    opt = dist_recipe(tmp, name)
+    opt.mesh = mesh
     t0 = time.perf_counter()
-    ranks = Ranks(tmp / "ranks", [("train", "train", dict(opt=vars(opt), max_steps=DIST_STEPS))],
+    ranks = Ranks(tmp / name, [("train", "train", dict(opt=vars(opt), max_steps=DIST_STEPS))],
                   device="cuda:0", backend="gloo", timeout=600).results()
     ranks_s = time.perf_counter() - t0
     r0, r1 = (r["train"] for r in ranks)
-    check([r["world"] for r in ranks] == [2, 2], "dist: world")
+    check([r["world"] for r in ranks] == [2, 2], f"dist {mesh}: world")
     for net in r0["after"]:
         for k, v in r0["after"][net].items():
-            check(torch.equal(v, r1["after"][net][k]), f"dist: ranks differ at {net}.{k}")
+            check(torch.equal(v, r1["after"][net][k]), f"dist {mesh}: ranks differ at {net}.{k}")
     for r in (r0, r1):
         counts = [(0, 0)] + [s["launches"] for s in r["steps"]]
         per = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(counts, counts[1:])]
-        check(per == [(1, 1)] * DIST_STEPS, f"dist: a rank's float32-route launches {per}")
+        check(per == [(1, 1)] * DIST_STEPS, f"dist {mesh}: a rank's float32-route launches {per}")
         check(r["steps"] and r["steps"][-1]["losses"] == r0["steps"][-1]["losses"],
-              "dist: ranks returned different losses")
+              f"dist {mesh}: ranks returned different losses")
+    return r0, ranks_s
+
+
+def dist_training(tmp, quiet):
+    """(b) run_training on the float32 recipe, global batch 32: two ranks on
+    cuda:0 over gloo on `data:2` (16 a rank) and on `data:1,model:2` (the
+    replicated model axis: 32 a rank), each against one process at 32.
+    Returns the part's record."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_dist_worker import run_training_first_grads
+
+    runs = {mesh: two_ranks(tmp, name, mesh)
+            for name, mesh in (("ranks", "data:2"), ("model", "data:1,model:2"))}
+    opt = dist_recipe(tmp, "ranks")
 
     # one process at the global batch, on the same recipe
     steps, marks = [], []
@@ -2528,22 +2797,25 @@ def dist_training(tmp, quiet):
                                                     device="cuda", on_step=on_step)
     nets = dict(zip(("g", "d1", "d2", "d3"), (state.gen, state.d1, state.d2, state.d3)))
     want = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()} for n, m in nets.items()}
-    loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
-                   for g, w in zip((s["losses"] for s in r0["steps"]), steps) for k in w)
-    check(loss_err <= LOSS_RTOL, f"dist: losses rel err {loss_err}")
-    # the first step's gradients, from one state in both runs; later steps
-    # start from states Adam's sign flips have moved apart (SUM_RTOL)
-    grads = grads_within(r0["first_grads"], want_g)
-    for net, w in grads.items():
-        check(w["max_err_over_scale"] <= GRAD_TOL, f"dist: {net} gradient err {w}")
     params = {n: {k: v for k, v in t.items() if k in want_g[n]} for n, t in want.items()}
-    apart = params_within(r0["after"], params, opt.lr, DIST_STEPS, "dist ranks")
-    rank_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(r0["steps"], r0["steps"][1:])]
-    return {"backend": "gloo", "device": "cuda:0", "ranks": 2, "global_batch": opt.batch_size,
-            "steps": DIST_STEPS, "losses_rel_err": loss_err, "first_step_grads": grads,
-            "params": apart, "ranks_bit_equal": True,
-            "ranks_wall_s": ranks_s, "rank_step2_ms": rank_ms,
-            "one_process_step2_ms": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]}
+    record = {"backend": "gloo", "device": "cuda:0", "ranks": 2, "global_batch": opt.batch_size,
+              "steps": DIST_STEPS, "ranks_bit_equal": True,
+              "one_process_step2_ms": [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]}
+    for mesh, (r0, ranks_s) in runs.items():
+        loss_err = max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12)
+                       for g, w in zip((s["losses"] for s in r0["steps"]), steps) for k in w)
+        check(loss_err <= LOSS_RTOL, f"dist {mesh}: losses rel err {loss_err}")
+        # the first step's gradients, from one state in both runs; later
+        # steps start from states Adam's sign flips have moved apart
+        # (SUM_RTOL)
+        grads = grads_within(r0["first_grads"], want_g)
+        for net, w in grads.items():
+            check(w["max_err_over_scale"] <= GRAD_TOL, f"dist {mesh}: {net} gradient err {w}")
+        apart = params_within(r0["after"], params, opt.lr, DIST_STEPS, f"dist {mesh}")
+        rank_ms = [(b["t"] - a["t"]) * 1e3 for a, b in zip(r0["steps"], r0["steps"][1:])]
+        record[mesh] = {"losses_rel_err": loss_err, "first_step_grads": grads, "params": apart,
+                        "ranks_wall_s": ranks_s, "rank_step2_ms": rank_ms}
+    return record
 
 
 def dist_nccl(tmp, quiet):
@@ -2640,8 +2912,9 @@ def dist_remat():
 
 @in_scratch
 def phase_dist(tmp, quiet):
-    """Multi-GPU on the one card: (a) the sharded 3D synthesis, (b) two-rank
-    data-parallel training over gloo, (c) the train CLI under torchrun with
+    """Multi-GPU on the one card: (a) the sharded 3D synthesis (data:2 and
+    data:2,model:2), (b) two-rank training over gloo (data:2 and
+    data:1,model:2), (c) the train CLI under torchrun with
     NCCL at world size 1, and one float32 step with remat; each part's ms
     beside the card's name and power limit. These are not multi-card speeds:
     the shards and ranks share one card."""
@@ -2675,8 +2948,9 @@ def main():
     bf16_ms = phase_fwd_bf16(gen, cfg)
     launches = phase_synth3d(gen, cfg)
     phase_int8(gen, cfg, bf16_ms)
-    bwd_launches = phase_train("bfloat16", timed=20)
-    f32_launches = phase_train("float32", timed=10)
+    bwd_launches = phase_train("bfloat16", timed=20)["bwd_launches"]
+    f32_launches = phase_train("float32", timed=10)["bwd_launches"]
+    phase_legacy()
     phase_cli()
     phase_hgam()
     phase_grade()

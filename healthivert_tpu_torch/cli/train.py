@@ -16,11 +16,16 @@ Data-parallel on N cards, one process a card, --batch_size the global batch:
 
 Each process takes the card of --gpu_ids at its LOCAL_RANK and joins the
 process group over NCCL (gloo with --gpu_ids -1). --mesh data:-1 (the
-default) is the world size; another data size must equal it.
+default) is the world size; a mesh must span the world. --mesh
+data:-1,model:2 lays the N processes out as N/2 data shards x 2 model
+replicas, the JAX package's model axis: the replicas of a shard train on the
+same slice of the batch with the same weights, so the step is that of N/2
+data shards.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 
 from ..config.options import TestOptions, TrainOptions
@@ -47,14 +52,16 @@ def parse_profile_steps(spec):
 
 
 def check_mesh(spec, world):
-    """Exit unless the data axis of --mesh is the world size (-1 is)."""
-    n = mesh_shape(spec, world).get("data", 1)
+    """Exit unless --mesh spans the world: data x model processes (an axis
+    of -1 takes what the others leave)."""
+    shape = mesh_shape(spec, world)
+    n = math.prod(max(s, 1) for s in shape.values())
     if n != world:
         raise SystemExit(
-            f"--mesh {spec} asks for {n} data shards, but {world} process(es) run: the "
-            "train CLI runs one process per shard; start it as torchrun --standalone "
-            f"--nproc_per_node {n} -m healthivert_tpu_torch.cli.train ... with one card "
-            "a process in --gpu_ids")
+            f"--mesh {spec} asks for {n} processes ({shape}), but {world} run: the "
+            "train CLI runs one process per mesh position; start it as torchrun "
+            f"--standalone --nproc_per_node {n} -m healthivert_tpu_torch.cli.train ... "
+            "with one card a process in --gpu_ids")
 
 
 def main(argv=None):

@@ -15,9 +15,9 @@ Where the JAX package selects a JAX backend, the port resolves a torch
 device: --gpu_ids -1 selects the CPU (the reference's semantics), an id >= 0
 selects that CUDA card and raises when there is none. Several ids are the
 cards of a run: under torchrun each process takes the id at its LOCAL_RANK,
-and the 3D synthesis CLI shards its slice batches over all of them. A flag
-naming a feature the port lacks raises NotImplementedError when it is used
-(`check_ported`).
+and the 3D synthesis CLI shards its slice batches over all of them. An
+--lr_policy that neither package runs raises NotImplementedError when it is
+used (`check_ported`).
 """
 
 from __future__ import annotations
@@ -223,28 +223,13 @@ def device_from_gpu_ids(gpu_ids) -> torch.device:
     return torch.device(f"cuda:{ids[local_rank]}")
 
 
-def _mesh_axes(spec: str):
-    """(axis, size) pairs of a --mesh spec as written (-1 stays -1)."""
-    for part in filter(None, (p.strip() for p in spec.split(","))):
-        name, _, size = part.partition(":")
-        yield name.strip(), int(size or -1)
-
-
 def check_ported(opt) -> None:
-    """Raise NotImplementedError for a flag whose feature the port lacks,
-    naming where ROADMAP.md queues it."""
-    unported = []
-    for axis, n in _mesh_axes(getattr(opt, "mesh", "data:-1")):
-        if axis != "data" and n != 1:
-            unported.append(f"--mesh {opt.mesh}: a {axis} axis (ROADMAP.md section 1 "
-                            "item 8; data parallelism alone is ported)")
-    if getattr(opt, "netD", "basic") == "seg":
-        unported.append("--netD seg (ROADMAP.md section 1 item 8, models/legacy.py)")
+    """Raise NotImplementedError for a flag that neither package runs: an
+    --lr_policy outside the LRSchedule's."""
     if opt.isTrain and getattr(opt, "lr_policy", "linear") not in LR_POLICIES:
-        unported.append(f"--lr_policy {opt.lr_policy} (the port's LRSchedule runs "
-                        f"{', '.join(LR_POLICIES)}, as the JAX package's; see ROADMAP.md)")
-    if unported:
-        raise NotImplementedError("not ported: " + "; ".join(unported))
+        raise NotImplementedError(
+            f"not ported: --lr_policy {opt.lr_policy} (the port's LRSchedule runs "
+            f"{', '.join(LR_POLICIES)}, as the JAX package's; see ROADMAP.md)")
 
 
 class BaseOptions:

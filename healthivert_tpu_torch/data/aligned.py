@@ -123,12 +123,12 @@ class AlignedDataset:
         # are read whole by every process, which keeps the plateau policy's
         # metric the same everywhere
         self.local_slice = None
-        world = distributed.process_count()
-        if world > 1 and getattr(opt, "isTrain", False):
-            if self.batch_size % world != 0:
+        shards = distributed.data_axis()[1]
+        if distributed.process_count() > 1 and getattr(opt, "isTrain", False):
+            if self.batch_size % shards != 0:
                 raise ValueError(
-                    f"batch_size {self.batch_size} must divide by process "
-                    f"count {world}"
+                    f"batch_size {self.batch_size} must divide by the {shards} "
+                    "data shards"
                 )
             self.local_slice = distributed.process_batch_slice(self.batch_size)
 

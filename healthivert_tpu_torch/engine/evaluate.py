@@ -5,7 +5,8 @@ Counterpart of healthivert_tpu/engine/evaluate.py:23-129 (parity with the
 reference train.py:50-160): one batched generator forward per eval batch,
 per-sample metrics on the device, and only the sums leave it. With a mesh
 (one process, parallel/mesh.make_mesh) each batch is split over the mesh's
-devices, one generator replica a device.
+data shards, each on the first device of its model group
+(`Mesh.data_devices`), one generator replica a device.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def evaluate_model(gen: Generator, dataset, cfg: Pix2PixConfig, out_dir=None, ep
     yields it, so every sample counts once.
 
     mesh: a one-process mesh; each batch is padded by repetition to a
-    multiple of its data size, split over its devices, and the padded
+    multiple of its data size, split over its data shards, and the padded
     entries are dropped from the sums."""
     if mesh is not None and mesh.processes > 1:
         raise ValueError("evaluate_model(mesh=...) is single-process only; "

@@ -23,9 +23,11 @@ read: its fingerprint hashes the flax tree's paths, this one the port's
 state-dict keys.
 
 `mesh=` (parallel/mesh.make_mesh, in one process) shards each dispatch's
-slice batch over the mesh's devices, as the JAX package's shard_map does:
-the batch is rounded up to a multiple of the data size, each device holds
-one generator replica and the CAM stack, the shards are launched before any
+slice batch over the mesh's data shards, as the JAX package's shard_map does:
+the batch is rounded up to a multiple of the data size, each shard runs once
+on the first device of its model group (a model axis replicates, so its
+other devices would compute the same numbers), each such device holds one
+generator replica and the CAM stack, the shards are launched before any
 output is copied back, and gathered in order. Every op is per sample, so
 the sharded volumes equal the unsharded ones at the shard's batch size.
 """
@@ -354,8 +356,8 @@ def synthesize_volumes(
     otherwise the scales calibrated here are written there.
 
     mesh: a one-process parallel.mesh.Mesh; each dispatch's batch_size,
-    rounded up to a multiple of its data size, is split over its devices
-    (`device` is then the device of `gen`, which serves the shards on it)."""
+    rounded up to a multiple of its data size, is split over its data
+    shards' devices (`mesh.data_devices`; `device` is then the device of `gen`, which serves the shards on it)."""
     if mesh is not None:
         if not isinstance(mesh, Mesh):
             raise TypeError(f"mesh= takes a parallel.mesh.Mesh, got {type(mesh).__name__}")
@@ -424,8 +426,8 @@ def synthesize_volumes(
     cam_stack = cam_host.to(dev)
     shards = [(gen, cam_stack)]
     if mesh is not None:
-        stacks = {d: cam_host.to(d) for d in set(mesh.devices)}
-        shards = [(g, stacks[d]) for g, d in zip(replicate_state(gen, mesh), mesh.devices)]
+        stacks = {d: cam_host.to(d) for d in set(mesh.data_devices)}
+        shards = [(g, stacks[d]) for g, d in zip(replicate_state(gen, mesh), mesh.data_devices)]
 
     g_quant = None if quant == "auto" else quant
     if quant == "auto" and quant_store and os.path.exists(quant_store):

@@ -156,8 +156,9 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
     with the losses as device tensors.
 
     Under torchrun (or a process group the caller started) each of the
-    world's processes trains on `device` with its slice of the global batch
-    opt.batch_size; a dataset that yields the global batch on every process
+    world's processes trains on `device` with the slice of the global batch
+    opt.batch_size of its data coordinate on --mesh (a model axis's ranks
+    take the same slice); a dataset that yields the global batch on every process
     (synthetic) is padded to the global size and sliced here, as in the JAX
     loop. The replicas start from rank 0's state."""
     if getattr(opt, "compute_dtype", "float32") == "int8":
@@ -166,13 +167,15 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
     cfg = config_from_opt(opt)
     dev = resolve_device(device)
     world = distributed.ensure_initialized(device=dev)
-    # one shard a process: the data axis is the world (a --mesh asking for
-    # another size raises, naming the torchrun command)
+    # one device a process: the mesh is the world (a --mesh asking for
+    # another size raises, naming the torchrun command); the ranks of one
+    # data coordinate train on the same slice, as model-axis replicas
     mesh = make_mesh(getattr(opt, "mesh", "data:-1"), devices=[dev])
     is_main = distributed.process_index() == 0
-    if opt.batch_size % world != 0:
-        raise ValueError(f"batch_size {opt.batch_size} must divide by process count {world}")
-    local_bs = opt.batch_size // world
+    shards = distributed.data_axis()[1]
+    if opt.batch_size % shards != 0:
+        raise ValueError(f"batch_size {opt.batch_size} must divide by the {shards} data shards")
+    local_bs = opt.batch_size // shards
     local = distributed.process_batch_slice(opt.batch_size)
     dataset = create_dataset(opt)
     print(f"The number of training images = {len(dataset)}")

@@ -6,7 +6,8 @@ equivalents; the loss-log format matches the reference's
 util/visualizer.py:241-257). The JAX package writes PNGs through PIL; the
 port writes them with the standard library (`write_png`: zlib + struct,
 8-bit grey or RGB) and does --aspect_ratio's resize with its own separable
-cubic (`resize_bicubic`, PIL's BICUBIC kernel and fixed-point rounding).
+cubic (`resize_bicubic`, PIL's BICUBIC kernel and fixed-point rounding,
+ops/resample.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import zlib
 from typing import Dict
 
 import numpy as np
+
+from ..ops.resample import resample_uint8
 
 
 def tensor2im(x, lo=-1.0, hi=1.0):
@@ -106,50 +109,15 @@ def read_png(path) -> np.ndarray:
 
 # ------------------------------------------------------------ bicubic resize
 
-_PRECISION_BITS = 32 - 8 - 2  # PIL's 8-bit resampling fixed point
-
-
-def _cubic(x):
-    """PIL's BICUBIC kernel, a = -0.5."""
-    a = -0.5
-    x = np.abs(x)
-    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
-                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
-
-
-def _resample_axis(arr: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One separable pass of PIL's resampling along `axis` (uint8 in and
-    out): per output pixel, the cubic's taps around its centre, normalised,
-    rounded to 22-bit fixed point, summed in integers and clipped."""
-    in_size = arr.shape[axis]
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    moved = np.moveaxis(arr, axis, 0).astype(np.int64)
-    out = np.empty((out_size,) + moved.shape[1:], np.uint8)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        w = _cubic((np.arange(xmax) + xmin - center + 0.5) * (1.0 / filterscale))
-        ww = sum(w.tolist())
-        if ww != 0.0:
-            w = w / ww
-        # C's (int) cast: round half away from zero, then truncate
-        k = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS)).astype(np.int64)
-        ss = (1 << (_PRECISION_BITS - 1)) + np.tensordot(k, moved[xmin:xmin + xmax], axes=1)
-        out[xx] = np.clip(ss >> _PRECISION_BITS, 0, 255)
-    return np.moveaxis(out, 0, axis)
-
 
 def resize_bicubic(arr: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
     """PIL's ``Image.fromarray(arr).resize((out_w, out_h), Image.BICUBIC)``
     on a uint8 (H, W) or (H, W, C) array: the horizontal pass, then the
     vertical, each only where its size changes."""
     if arr.shape[1] != out_w:
-        arr = _resample_axis(arr, out_w, 1)
+        arr = resample_uint8(arr, out_w, 1)
     if arr.shape[0] != out_h:
-        arr = _resample_axis(arr, out_h, 0)
+        arr = resample_uint8(arr, out_h, 0)
     return arr
 
 

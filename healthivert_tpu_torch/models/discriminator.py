@@ -34,12 +34,17 @@ from .layers import normal_init, weight_init
 
 
 class BatchNorm(nn.Module):
-    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5) in training mode
-    (the discriminators always run with batch statistics in the JAX step)."""
+    """flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5). In training mode
+    (the discriminators always run so in the JAX step) it normalises with
+    the batch statistics; in eval mode with the running ones, as flax's
+    use_running_average=True does for the legacy networks at train=False.
+    `gain_scale` says how init_weights draws the scale: from N(1, gain), or
+    flax's ones when False."""
 
-    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 gain_scale: bool = True):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.gain_scale = momentum, eps, gain_scale
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -47,6 +52,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, update_stats: bool = True):
         x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=self.eps)
         if distributed.is_multiprocess():
             return self._global_batch(x, update_stats)
         y = F.batch_norm(x, None, None, self.weight, self.bias, training=True, eps=self.eps)
@@ -64,7 +72,9 @@ class BatchNorm(nn.Module):
     def _global_batch(self, x, update_stats):
         """Normalise with the statistics of the batch over all ranks, as
         flax's _compute_stats and _normalize do; every rank updates its
-        running statistics with the same global mean and variance."""
+        running statistics with the same global mean and variance. Under a
+        model axis every data shard's sums and count enter replicas() times,
+        which leaves the means, and so the statistics, unchanged."""
         c = x.shape[1]
         count = x.new_full((1,), x.numel() // c)
         sums = distributed.all_reduce_sum(

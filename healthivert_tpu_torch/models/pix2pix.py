@@ -5,9 +5,10 @@ Counterpart of healthivert_tpu/models/pix2pix.py: `Pix2PixConfig` (:46-125),
 (:185-212), `generator_forward` (:215-282), `_update_sn_tree` (:386-405),
 `train_step` (:408-606), the learning-rate schedule (:609-681) and the int8
 calibration (`INT8_CALIB_PERCENTILE`, `calib_to_quant`, `merge_calib`,
-`calibrate_int8`, :285-373). The JAX `_d_forward` (:375-383) is the
-discriminators' own forward here, whose `update_stats` flag stands for the
-mutable batch_stats collection. The seg discriminator is not ported yet.
+`calibrate_int8`, :285-373). The JAX `_d_forward` (:375-383) is
+`_d_logits` here: the discriminators' own forward, whose `update_stats` flag
+stands for the mutable batch_stats collection; of the seg discriminator
+(--netD seg, models/legacy.py) it takes the patch logits alone.
 
 Under a process group of several ranks (parallel/distributed.py) each rank
 holds its slice of the global batch and the step equals the JAX step on the
@@ -52,6 +53,7 @@ from ..utils.device import resolve_device
 from ..utils.weights import load_npz_state_dict
 from .discriminator import NLayerDiscriminator, PixelDiscriminator, gan_loss
 from .generator import Generator, init_generator
+from .legacy import SegDiscriminator
 from .layers import CALIB_PERCENTILES, INT8, SNConv, int8_scope
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16, "int8": INT8}
@@ -71,8 +73,8 @@ class Pix2PixConfig:
 
     ngf: int = 16
     ndf: int = 64
-    net_d: str = "basic"  # basic | n_layers | pixel
-    n_layers_d: int = 3  # read when net_d == "n_layers"
+    net_d: str = "basic"  # basic | n_layers | pixel | seg
+    n_layers_d: int = 3  # read when net_d is "n_layers" or "seg"
     norm: str = "batch"  # batch | instance | none (discriminator norm layers)
     lr: float = 2e-4
     beta1: float = 0.5
@@ -99,9 +101,6 @@ class Pix2PixConfig:
                 f"compute_dtype={self.compute_dtype!r}: the port runs "
                 f"{sorted(_DTYPES)}"
             )
-        if self.net_d == "seg":
-            raise NotImplementedError("net_d='seg' is not ported yet (queued in ROADMAP.md "
-                                      "section 1 item 8, models/legacy.py)")
 
     @property
     def module_dtype(self):
@@ -128,6 +127,10 @@ def build_discriminator(cfg: Pix2PixConfig) -> nn.Module:
         return NLayerDiscriminator(1, cfg.ndf, cfg.n_layers_d, cfg.norm, cfg.disc_dtype)
     if cfg.net_d == "pixel":
         return PixelDiscriminator(1, cfg.ndf, cfg.norm, cfg.disc_dtype)
+    if cfg.net_d == "seg":
+        # float32 whatever compute_dtype, and no norm choice: the JAX module
+        # takes neither (its pix2pix.py:170-173)
+        return SegDiscriminator(1, cfg.ndf, cfg.n_layers_d, cfg.init_type, cfg.init_gain)
     raise NotImplementedError(f"Discriminator model name [{cfg.net_d}] is not recognized")
 
 
@@ -329,6 +332,24 @@ def _frozen(modules):
             p.requires_grad_(flag)
 
 
+def _d_logits(d: nn.Module, x, update_stats: bool = True):
+    """A discriminator's patch logits (the JAX `_d_forward`): the seg
+    discriminator's seg map is dropped, its decoder run only for its
+    running statistics (`SegDiscriminator`, seg=False)."""
+    if isinstance(d, SegDiscriminator):
+        return d(x, update_stats, seg=False)
+    return d(x, update_stats)
+
+
+def _zero_missing_grads(module: nn.Module):
+    """Zero .grad for the parameters no loss reached (the seg decoder's),
+    as jax.grad gives them: Adam then steps them by exactly 0 and keeps
+    moments for them, as optax does."""
+    for p in module.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
                cfg: Pix2PixConfig = Pix2PixConfig()):
     """One optimization step: D1, D2, D3, then G, as in the JAX package.
@@ -385,10 +406,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
         seg_bin = (fs > 0.5).float()
         with _frozen(discs):
             heads = (fb, seg_bin, crop(mask * fb * center))
-            l_gan = sum(gan_loss(d(x, update_stats=False), True, cfg.gan_mode)
+            l_gan = sum(gan_loss(_d_logits(d, x, update_stats=False), True, cfg.gan_mode)
                         for d, x in zip(discs, heads)) / 6.0
-        # the global batch's count: each rank's mean L1 then averages to it
-        mask_count = distributed.all_reduce_sum(torch.count_nonzero(mask).float())
+        # the global batch's count: each rank's mean L1 then averages to it.
+        # Under a model axis each data shard sits on replicas() ranks, so the
+        # sum over the ranks counts every shard that many times
+        mask_count = distributed.all_reduce_sum(
+            torch.count_nonzero(mask).float()) / distributed.replicas()
         l_l1 = (
             (torch.mean(torch.abs(fb - full)) + torch.mean(torch.abs(fbc - full)))
             * 0.5
@@ -412,9 +436,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], lr: float,
     pairs = ((fake_b, full), (fine_seg_bin, batch["vert_seg"]), (fake_local, real_local))
     for i, (d, opt, (fake, real)) in enumerate(zip(discs, opts_d, pairs), start=1):
         opt.zero_grad(set_to_none=True)
-        l_fake = gan_loss(d(fake.detach()), False, cfg.gan_mode)
-        l_real = gan_loss(d(real), True, cfg.gan_mode)
+        l_fake = gan_loss(_d_logits(d, fake.detach()), False, cfg.gan_mode)
+        l_real = gan_loss(_d_logits(d, real), True, cfg.gan_mode)
         ((l_fake + l_real) * 0.5).backward()
+        _zero_missing_grads(d)
         distributed.average_gradients(d)
         opt.step()
         losses[f"D_fake_{i}"], losses[f"D_real_{i}"] = l_fake.detach(), l_real.detach()

@@ -67,16 +67,44 @@ def ensure_initialized(device=None, backend=None, init_method="env://",
     return process_count()
 
 
+# (this rank's coordinate on the data axis, the data axis's size): part of
+# the process group's layout, so set with it (by parallel/mesh.make_mesh)
+# and cleared by shutdown; None: the data axis is the world
+_DATA_AXIS = None
+
+
 def shutdown() -> None:
     """Leave the process group, if there is one."""
+    global _DATA_AXIS
+    _DATA_AXIS = None
     if dist.is_available() and dist.is_initialized():
         dist.destroy_process_group()
 
 
+def set_data_axis(index: int, size: int) -> None:
+    """Record this rank's place on the data axis (parallel/mesh.make_mesh
+    does, under a process group); the ranks that share a data coordinate
+    are replicas of one shard, one per model coordinate."""
+    global _DATA_AXIS
+    _DATA_AXIS = (index, size)
+
+
+def data_axis() -> tuple:
+    """(this rank's data coordinate, the data axis's size)."""
+    return _DATA_AXIS if _DATA_AXIS is not None else (process_index(), process_count())
+
+
+def replicas() -> int:
+    """Ranks that hold each data shard: the size of the model axis."""
+    return process_count() // data_axis()[1]
+
+
 def process_batch_slice(global_batch: int) -> slice:
-    """This process's contiguous slice of a globally indexed batch."""
-    per = global_batch // process_count()
-    start = per * process_index()
+    """This process's contiguous slice of a globally indexed batch: the
+    slice of its data coordinate."""
+    index, size = data_axis()
+    per = global_batch // size
+    start = per * index
     return slice(start, start + per)
 
 
@@ -103,7 +131,10 @@ def all_reduce_mean(t: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def average_gradients(module: torch.nn.Module) -> None:
     """Replace every parameter's .grad by its mean over the ranks, in one
-    all_reduce of the gradients flattened together."""
+    all_reduce of the gradients flattened together. Under a model axis the
+    ranks of one data shard hold equal gradients; each shard then enters
+    the mean replicas() times, as every other shard does, so the mean over
+    the ranks is the mean over the data shards."""
     if not is_multiprocess():
         return
     grads = [p.grad for p in module.parameters() if p.grad is not None]

@@ -1,17 +1,23 @@
 """The device mesh of data-parallel runs, and batches split over it.
 
 Counterpart of healthivert_tpu/parallel/mesh.py:21-94. The networks are
-small, so parallelism is data parallelism alone: the batch is split over the
-`data` axis and every shard runs a full replica. The JAX package keeps a
-`model` axis in the spec, unused by its graph (mesh.py:7-8); here a `model`
-axis larger than 1 raises, as it is not ported (ROADMAP.md section 1 item 8).
+small, so parallelism is data parallelism: the batch is split over the
+`data` axis and every shard runs a full replica. A `model` axis means what
+it means in the JAX package, whose graph does not use it (mesh.py:7-8): the
+parameters are replicated over it and the batch is sharded over `data`
+only, so the devices of one model group would compute the same numbers.
+The devices are laid out in the spec's axis order, as the JAX package's
+np.array(devices[:total]).reshape(sizes) lays them out.
 
 Two kinds of mesh:
-- in one process, `devices` holds one device per shard of the data axis.
-  A device may repeat: each entry is one shard, so one card (or the CPU)
-  can hold a data axis of 2;
-- under a process group of several processes (torchrun), the data axis
-  spans the ranks, one shard a rank, and `devices` holds this rank's device.
+- in one process, `devices` holds the mesh's devices in that layout, and
+  each data shard runs once, on the first device of its model group
+  (`data_devices`). A device may repeat, so one card (or the CPU) can hold
+  a data axis of 2;
+- under a process group of several processes (torchrun), the mesh spans
+  the ranks, one device a rank, in the same layout; `devices` holds this
+  rank's device, and each rank feeds the shard of its data coordinate
+  (distributed.process_batch_slice).
 """
 
 from __future__ import annotations
@@ -37,6 +43,22 @@ class Mesh:
     def size(self) -> int:
         """Shards of the data axis."""
         return self.shape.get("data", 1)
+
+    @property
+    def data_stride(self) -> int:
+        """Mesh positions between two data coordinates in the layout."""
+        axes = list(self.shape)
+        if "data" not in axes:
+            return 1
+        return math.prod(list(self.shape.values())[axes.index("data") + 1:])
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each data shard: the first of its model group (in
+        one process), or this rank's device (under a process group)."""
+        if self.processes > 1:
+            return self.devices
+        return tuple(self.devices[d * self.data_stride] for d in range(self.size))
 
 
 def mesh_shape(spec: str, n_devices: int) -> Dict[str, int]:
@@ -68,9 +90,10 @@ def _device(d) -> torch.device:
 
 def make_mesh(spec: str = "data:-1", devices=None) -> Mesh:
     """The mesh of `spec`. Default devices: in one process the visible
-    cards; under a process group of several processes the data axis spans
-    the ranks, and `devices` may name this rank's device (default: its
-    current card, else the CPU)."""
+    cards; under a process group of several processes the mesh spans the
+    ranks, and `devices` may name this rank's device (default: its current
+    card, else the CPU). Under a process group it records this rank's data
+    coordinate (distributed.set_data_axis)."""
     world = distributed.process_count()
     if world > 1:
         local = [_device(d) for d in devices] if devices is not None else [_local_device()]
@@ -85,18 +108,16 @@ def make_mesh(spec: str = "data:-1", devices=None) -> Mesh:
             devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
         local = [_device(d) for d in devices]
         shape = mesh_shape(spec, len(local))
-    for axis, n in shape.items():
-        if axis != "data" and n > 1:
-            raise NotImplementedError(
-                f"mesh axis {axis}:{n}: only the data axis is ported (a model axis "
-                "is ROADMAP.md section 1 item 8)")
     total = math.prod(shape.values())
     if world > 1:
         if total != world:
             raise ValueError(
-                f"--mesh {spec} asks for {total} data shards, but {world} processes run; "
-                f"start one process per shard: torchrun --nproc_per_node {total} ...")
-        return Mesh(shape, tuple(local), processes=world)
+                f"--mesh {spec} asks for {total} devices, but {world} processes run; "
+                f"start one process per device: torchrun --nproc_per_node {total} ...")
+        mesh = Mesh(shape, tuple(local), processes=world)
+        distributed.set_data_axis(
+            distributed.process_index() // mesh.data_stride % mesh.size, mesh.size)
+        return mesh
     if total > len(local) or total < 1:
         raise ValueError(
             f"--mesh {spec} needs {total} devices, {len(local)} given (training runs one "
@@ -136,21 +157,21 @@ def shard_batch(batch: dict, mesh: Mesh) -> List[dict]:
         n = next(iter(batch.values())).shape[0]
         part = distributed.process_batch_slice(n)
         return [to_device({k: v[part] for k, v in batch.items()}, mesh.devices[0])]
-    return [to_device(b, d) for b, d in zip(split_batch(batch, mesh.size), mesh.devices)]
+    return [to_device(b, d) for b, d in zip(split_batch(batch, mesh.size), mesh.data_devices)]
 
 
 def replicate_state(module: torch.nn.Module, mesh: Mesh) -> List[torch.nn.Module]:
-    """One replica of `module` per shard of the mesh. In one process a
-    replica per distinct device (shards on one device share it; `module`
-    itself serves its own device); under a process group rank 0's module,
-    broadcast to every rank and checked by checksum."""
+    """One replica of `module` per data shard of the mesh. In one process a
+    replica per distinct device of `data_devices` (shards on one device
+    share it; `module` itself serves its own device); under a process group
+    rank 0's module, broadcast to every rank and checked by checksum."""
     if mesh.processes > 1:
         distributed.broadcast_module(module)
         distributed.check_replicated([module], "replicated modules")
         return [module]
     home = next(module.parameters()).device
     replicas = {}
-    for d in mesh.devices:
+    for d in mesh.data_devices:
         if d not in replicas:
             replicas[d] = module if d == home else copy.deepcopy(module).to(d)
-    return [replicas[d] for d in mesh.devices]
+    return [replicas[d] for d in mesh.data_devices]

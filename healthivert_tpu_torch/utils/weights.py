@@ -16,6 +16,10 @@ become the state dict of `models.discriminator`: kernels OIHW, scale and
 bias the norm's weight and bias, mean and var its running_mean and
 running_var.
 
+The legacy networks (models/legacy.py) store the same kinds of variables
+under their flax names; their nn.ConvTranspose kernels (kh, kw, in, out)
+become torch's transposed-conv layout (in, out, kh, kw), flipped in space.
+
 The flax fracture classifier (HGAM) stores {"params"}: ``conv<i>/kernel``
 HWIO and ``bias``, GroupNorm ``gn<i>/scale`` and ``bias``, and the head
 ``fc/kernel`` (in, out) and ``bias``. They become the state dict of
@@ -117,7 +121,25 @@ def flax_quant_to_flat(quant: Mapping) -> Dict[str, torch.Tensor]:
 def flax_discriminator_to_state_dict(params: Mapping,
                                      batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
     """Flax discriminator trees -> state dict of `models.discriminator`'s
-    NLayerDiscriminator or PixelDiscriminator."""
+    NLayerDiscriminator or PixelDiscriminator (their names hold no
+    transposed conv, so the legacy bridge maps them)."""
+    return flax_legacy_to_state_dict(params, batch_stats)
+
+
+# the flax names of the legacy networks' nn.ConvTranspose layers: `_up`'s
+# ``<name>_deconv``, the seg decoder's ``dec<i>`` and ``seg_out``, and
+# ResnetGenerator's ``up<i>``
+_TRANSPOSED = re.compile(r"(.*_deconv|dec\d+|seg_out|up\d+)")
+
+
+def flax_legacy_to_state_dict(params: Mapping,
+                              batch_stats: Mapping = None) -> Dict[str, torch.Tensor]:
+    """Flax trees of a `models.legacy` network (SegDiscriminator,
+    UnetGenerator, ResnetGenerator, DualHeadUNet) -> its state dict. Conv
+    kernels go HWIO -> OIHW; ConvTranspose kernels (kh, kw, in, out), which
+    flax does not flip, go to torch's (in, out, kh, kw) flipped in space
+    (`legacy.ConvTranspose`); biases, BatchNorm scale and bias, and the
+    running mean and var map as in flax_discriminator_to_state_dict."""
     sd: Dict[str, torch.Tensor] = {}
     names = {"kernel": "weight", "bias": "bias", "scale": "weight",
              "mean": "running_mean", "var": "running_var"}
@@ -125,9 +147,13 @@ def flax_discriminator_to_state_dict(params: Mapping,
         *mod, name = path.split("/")
         a = np.asarray(leaf, np.float32)
         if name not in names or (name == "kernel") != (a.ndim == 4):
-            raise ValueError(f"unexpected discriminator variable {path} {a.shape}")
+            raise ValueError(f"unexpected discriminator or legacy network variable {path} "
+                             f"{a.shape}")
         if name == "kernel":
-            a = a.transpose(3, 2, 0, 1)
+            if _TRANSPOSED.fullmatch(mod[-1]):
+                a = a[::-1, ::-1].transpose(2, 3, 0, 1)
+            else:
+                a = a.transpose(3, 2, 0, 1)
         sd[".".join(mod + [names[name]])] = torch.from_numpy(np.array(a, order="C"))
     return sd
 

@@ -13,6 +13,9 @@ the JAX references:
   gradient and every update at the tolerances of
   tests/test_torch_train_step.py (torch_port_fixtures.check_*); the two
   ranks' networks bit-equal to each other;
+- the same step with the two ranks on a `data:1,model:2` mesh (the JAX
+  package's replicated model axis: each rank the whole batch of 4) against
+  the same JAX step, at the same tolerances;
 - AlignedDataset (training split, global batch 4) on tests/cli_cohort.py:
   each rank's batches bit-equal to its rows of the one-process global
   batches, the trailing one padded to the global size first;
@@ -87,7 +90,10 @@ def ranks(tmp_path_factory, cohort):
                                         batch=_batch(), lr=LR)) for p in PREUPDATE]
     tasks += [("aligned", "aligned", dict(ALIGNED, dataroot=cohort)),
               ("train", "train_cli", dict(argv=CLI + ["--dataroot", cohort, "--checkpoints_dir",
-                                                      str(out / "ck")]))]
+                                                      str(out / "ck")])),
+              # last: its mesh sets the ranks' data coordinate
+              ("step_model", "step", dict(cfg=dict(SMALL, gan_head_preupdate=True), sds=sds,
+                                          batch=_batch(), lr=LR, mesh="data:1,model:2"))]
     return types.SimpleNamespace(before=sds, results=functools.cache(Ranks(out, tasks).results),
                                  run_dir=out / "ck" / "run")
 
@@ -107,6 +113,23 @@ def test_two_rank_train_step_matches_jax_on_a_data2_mesh(ranks, preupdate):
     r0, r1 = (r[f"step_{preupdate}"] for r in ranks.results())
     assert r0["losses"] == r1["losses"]
     assert set(r0["losses"]) == set(want_l) and len(want_l) == 13
+    for k, w in want_l.items():
+        assert r0["losses"][k] == pytest.approx(w, rel=2e-4, abs=2e-4), k
+    for net in NETS:
+        for k, v in r0["after"][net].items():
+            assert torch.equal(v, r1["after"][net][k]), (net, k)
+    check_sn_and_stats(r0["after"], want_sd)
+    check_grads(r0["grads"], want_g)
+    check_deltas(ranks.before, r0["after"], want_sd, r0["grads"], want_g, LR)
+
+
+def test_two_rank_model_axis_step_matches_jax(ranks):
+    """data:1,model:2: both ranks hold the whole batch and the same
+    weights; the gradient mean, BatchNorm's global sums and the mask count
+    over the two replicas give the one-shard step."""
+    want_l, want_sd, want_g = _jax_step(True)
+    r0, r1 = (r["step_model"] for r in ranks.results())
+    assert r0["losses"] == r1["losses"]
     for k, w in want_l.items():
         assert r0["losses"][k] == pytest.approx(w, rel=2e-4, abs=2e-4), k
     for net in NETS:

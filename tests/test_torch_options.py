@@ -87,14 +87,14 @@ def test_gpu_ids_select_the_device(tmp_path):
 
 FLAGS = [["--mesh", "data:2"], ["--mesh", "data:-1,model:2"], ["--remat"], ["--netD", "seg"],
          ["--lr_policy", "exponential"], ["--gpu_ids", "0,1"]]
-RAISE = ("--mesh data:-1,model:2", "--netD seg", "--lr_policy exponential")
+RAISE = ("--lr_policy exponential",)
 
 
 @pytest.mark.parametrize("argv", FLAGS, ids=lambda a: " ".join(a))
 def test_unported_flags_raise(tmp_path, monkeypatch, argv):
-    """The flags of features still queued raise; the cases of ROADMAP.md
-    section 1 item 7 (multi-GPU) and --remat, which raised until it was
-    ported, now parse and the CLIs take them."""
+    """--lr_policy exponential, which neither package runs, raises; the
+    flags of features that raised until they were ported (multi-GPU with a
+    model axis, --remat, --netD seg) now parse and the CLIs take them."""
     from healthivert_tpu_torch.cli import eval_3d_sagittal_twostage as e3_cli
     from healthivert_tpu_torch.cli.train import check_mesh
     from healthivert_tpu_torch.engine.train_loop import config_from_opt
@@ -111,8 +111,14 @@ def test_unported_flags_raise(tmp_path, monkeypatch, argv):
         check_mesh(opt.mesh, 2)
         with pytest.raises(SystemExit, match="torchrun --standalone --nproc_per_node 2"):
             check_mesh(opt.mesh, 1)
+        if "model" in opt.mesh:  # data x model processes
+            check_mesh(opt.mesh, 4)
+            with pytest.raises(SystemExit, match="asks for 2 processes"):
+                check_mesh(opt.mesh, 3)  # data:-1 takes 3 // 2 shards, as in JAX
     elif argv[0] == "--remat":
         assert config_from_opt(opt).remat
+    elif argv[0] == "--netD":
+        assert config_from_opt(opt).net_d == "seg"
     else:  # each torchrun process takes its card; the 3D CLI shards over both
         assert opt.device == torch.device("cuda:0")
         monkeypatch.setenv("LOCAL_RANK", "1")

@@ -47,14 +47,40 @@ def test_make_mesh_shapes_match_jax():
     for spec in ("data:8", "data:4,model:2", "data:-1", "data:-1,model:2", "data:2"):
         want = dict(jmesh.make_mesh(spec).shape)
         assert mesh.mesh_shape(spec, len(jax.devices())) == want, spec
-        if want.get("model", 1) > 1:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                mesh.make_mesh(spec, devices=["cpu"] * 8)
-        else:
-            m = mesh.make_mesh(spec, devices=["cpu"] * 8)
-            assert m.shape == want and len(m.devices) == m.size and m.processes == 1
+        m = mesh.make_mesh(spec, devices=["cpu"] * 8)
+        assert m.shape == want and m.processes == 1 and m.size == want["data"]
+        assert len(m.devices) == want["data"] * want.get("model", 1)
+        assert len(m.data_devices) == m.size
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         mesh.make_mesh("data:2", devices=["cpu"])
+
+
+@pytest.mark.parametrize("spec", ["data:2,model:2", "model:2,data:2", "data:-1,model:2"])
+def test_model_axis_layout_matches_jax(monkeypatch, spec):
+    """The devices lie in the spec's axis order, as the JAX package's
+    reshape lays them out; each data shard runs on the first device of its
+    model group; under a 2 x 2 process group each rank takes the batch
+    slice of its data coordinate, and the model axis's replicas() is 2."""
+    jm = jmesh.make_mesh(spec, devices=jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    axes = list(jm.axis_names)
+    m = mesh.make_mesh(spec, devices=[f"cuda:{i}" for i in range(4)])
+    assert [d.index for d in m.devices] == ids.reshape(-1).tolist()
+    first = np.moveaxis(ids, axes.index("data"), 0).reshape(2, -1)[:, 0]
+    assert [d.index for d in m.data_devices] == first.tolist()
+
+    monkeypatch.setattr(distributed, "_DATA_AXIS", None)
+    monkeypatch.setattr(distributed, "process_count", lambda: 4)
+    for rank in range(4):
+        monkeypatch.setattr(distributed, "process_index", lambda: rank)
+        m = mesh.make_mesh(spec, devices=["cpu"])
+        assert m.processes == 4 and m.data_devices == (torch.device("cpu"),)
+        coord = int(np.argwhere(ids == rank)[0][axes.index("data")])
+        assert distributed.data_axis() == (coord, 2)
+        assert distributed.process_batch_slice(8) == slice(4 * coord, 4 * coord + 4)
+        assert distributed.replicas() == 2
+    with pytest.raises(ValueError, match="--nproc_per_node 8"):
+        mesh.make_mesh("data:4,model:2", devices=["cpu"])
 
 
 def test_make_mesh_needs_a_card_or_devices(monkeypatch):
@@ -169,6 +195,28 @@ def test_sharded_synthesis_matches_unsharded_and_jax():
     m = mesh.Mesh({"data": 2}, (torch.device("cpu"),), processes=2)
     with pytest.raises(ValueError, match="one process"):
         infer3d.synthesize_volumes(gen, cfg, vols, mesh=m, use_bf16=False, device="cpu")
+
+
+def test_model_axis_synthesis_matches_unsharded():
+    """data:2,model:2 over the CPU four times: each data shard runs once
+    (the model replicas would compute the same numbers), so it dispatches
+    as data:2 does and is bit-equal to the unsharded call."""
+    v = random_generator_vars(4)
+    gen = Generator(cnum=4)
+    gen.load_state_dict(flax_to_state_dict(v["params"], v["sn"]))
+    gen.eval()
+    cfg = Pix2PixConfig(ngf=4, image_size=64)
+    ct, labels, cam = _spine()
+    vols = [(ct, labels, 20, cam)]
+    plain, _ = _synth(gen, cfg, vols, 4)
+    data2, n_data2 = _synth(gen, cfg, vols, 8, mesh.make_mesh("data:2", devices=CPU2))
+    m = mesh.make_mesh("data:2,model:2", devices=["cpu"] * 4)
+    assert m.shape == {"data": 2, "model": 2} and len(m.data_devices) == 2
+    got, n_got = _synth(gen, cfg, vols, 8, m)
+    assert n_got == n_data2
+    for (a_ct, a_lb), (b_ct, b_lb) in zip(got, plain):
+        np.testing.assert_array_equal(a_ct, b_ct)
+        np.testing.assert_array_equal(a_lb, b_lb)
 
 
 @pytest.mark.usefixtures("one_torch_thread")

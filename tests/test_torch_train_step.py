@@ -254,13 +254,13 @@ def test_run_training_stops_on_non_finite_losses(tmp_path):
 
 
 def test_unported_options_raise():
-    """net_d='seg' and a model mesh axis still raise; remat,
-    vmap_discriminators and a data mesh (which raised until multi-GPU was
-    ported) are accepted."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pix2pix.Pix2PixConfig(net_d="seg")
+    """net_d='seg', a model mesh axis, remat, vmap_discriminators and a data
+    mesh, which each raised until they were ported, are accepted; an
+    lr_policy that neither package runs still raises."""
+    assert pix2pix.Pix2PixConfig(net_d="seg").net_d == "seg"
     assert pix2pix.Pix2PixConfig(remat=True).remat
     assert pix2pix.Pix2PixConfig(vmap_discriminators=True).vmap_discriminators
     check_ported(_opt(mesh="data:2", isTrain=True))
+    check_ported(_opt(mesh="data:2,model:2", isTrain=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(_opt(mesh="data:2,model:2", isTrain=True))
+        check_ported(_opt(lr_policy="exponential", isTrain=True))

@@ -14,7 +14,9 @@ tasks in order and writes {name: result, "world": N} to
 
 - bn:        NLayerDiscriminator forward of this rank's half of x with the
              global BatchNorm statistics, and the gradient of sum(out * w)
-- step:      one train_step on this rank's slice of a global batch
+- step:      one train_step on this rank's slice of a global batch (with
+             args["mesh"], on that mesh: the slice of the rank's data
+             coordinate)
 - aligned:   one epoch of AlignedDataset batches (training split)
 - train:     run_training(opt) for max_steps: each step's losses, attention
              launches and end time (host clock after a synchronise), the
@@ -139,6 +141,10 @@ def bn(args, device):
 def step(args, device):
     from healthivert_tpu_torch.models import pix2pix
 
+    if "mesh" in args:
+        from healthivert_tpu_torch.parallel.mesh import make_mesh
+
+        make_mesh(args["mesh"], devices=[device])
     cfg = pix2pix.Pix2PixConfig(**args["cfg"])
     state = pix2pix.init_state(cfg, seed=0, device=device)
     for name, m in _nets(state).items():

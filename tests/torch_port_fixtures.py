@@ -102,34 +102,38 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def jax_state_dicts(js):
-    """Port state dicts of the four networks of a JAX TrainState."""
-    from healthivert_tpu_torch.utils.weights import (
-        flax_discriminator_to_state_dict,
-        flax_to_state_dict,
-    )
+def _d_bridge(legacy):
+    from healthivert_tpu_torch.utils import weights
 
+    return (weights.flax_legacy_to_state_dict if legacy
+            else weights.flax_discriminator_to_state_dict)
+
+
+def jax_state_dicts(js, legacy=False):
+    """Port state dicts of the four networks of a JAX TrainState (legacy:
+    the discriminators are --netD seg's, models/legacy.py)."""
+    from healthivert_tpu_torch.utils.weights import flax_to_state_dict
+
+    d_sd = _d_bridge(legacy)
     return {
         "g": flax_to_state_dict(_np(js.g_params), _np(js.g_sn)),
-        "d1": flax_discriminator_to_state_dict(_np(js.d1_params), _np(js.d1_stats)),
-        "d2": flax_discriminator_to_state_dict(_np(js.d2_params), _np(js.d2_stats)),
-        "d3": flax_discriminator_to_state_dict(_np(js.d3_params), _np(js.d3_stats)),
+        "d1": d_sd(_np(js.d1_params), _np(js.d1_stats)),
+        "d2": d_sd(_np(js.d2_params), _np(js.d2_stats)),
+        "d3": d_sd(_np(js.d3_params), _np(js.d3_stats)),
     }
 
 
-def jax_adam_grads(js):
+def jax_adam_grads(js, legacy=False):
     """The JAX step's gradients, from Adam's first moment after one step."""
-    from healthivert_tpu_torch.utils.weights import (
-        flax_discriminator_to_state_dict,
-        flax_to_state_dict,
-    )
+    from healthivert_tpu_torch.utils.weights import flax_to_state_dict
 
+    d_sd = _d_bridge(legacy)
     g = lambda opt: jax.tree_util.tree_map(lambda m: np.asarray(m) / 0.5, opt.mu)
     return {
         "g": flax_to_state_dict(g(js.opt_g), {}),
-        "d1": flax_discriminator_to_state_dict(g(js.opt_d1)),
-        "d2": flax_discriminator_to_state_dict(g(js.opt_d2)),
-        "d3": flax_discriminator_to_state_dict(g(js.opt_d3)),
+        "d1": d_sd(g(js.opt_d1)),
+        "d2": d_sd(g(js.opt_d2)),
+        "d3": d_sd(g(js.opt_d3)),
     }
 
 NETS = ("g", "d1", "d2", "d3")
