@@ -174,7 +174,9 @@ def _train_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         help="'START,STOP' step numbers bracketing a "
                              "torch.profiler trace written to "
                              "{checkpoints_dir}/{name}/profile "
-                             "(SURVEY.md §5: tracing wired into the loop)")
+                             "(SURVEY.md §5: tracing wired into the loop); "
+                             "the program's spans of those steps go beside "
+                             "it as spans.json")
     return parser
 
 

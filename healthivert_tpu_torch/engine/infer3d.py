@@ -54,6 +54,7 @@ from ..models.pix2pix import (
     quant_scales,
 )
 from ..parallel.mesh import Mesh, replicate_state
+from ..utils import spans
 from ..utils.device import resolve_device
 
 MAXHEIGHT = 40
@@ -216,14 +217,16 @@ def _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size, keys=_INT_KEYS):
     return chunk, ct, rat, zidx, ints
 
 
-def _run_pass(shards, jobs, ratios, job_zidx, batch_size=32, use_bf16=True, g_quant=None):
+def _run_pass(shards, jobs, ratios, job_zidx, batch_size=32, use_bf16=True, g_quant=None,
+              rid=None, which=None):
     """Batched forwards over a list of geometry jobs; returns per-job
     outputs. shards: one (generator, device-resident (NZ, H, W) uint8 CAM
     stack) per shard of each dispatch, the stack's rows indexed by
     job_zidx; g_quant, a quant tree of static int8 scales. With several
     shards each dispatch of batch_size slices (a multiple of the shard
     count) is split evenly over them, every shard launched before any
-    output is copied back."""
+    output is copied back. rid, which: the patient call and the pass that
+    the dispatch and readback spans name."""
     if not jobs:
         return []
     # window for this pass: covers x1-20 .. x1+max(MAXHEIGHT, height) of the
@@ -234,21 +237,23 @@ def _run_pass(shards, jobs, ratios, job_zidx, batch_size=32, use_bf16=True, g_qu
         j["w0"] = min(max(j["x1"] - 20, 0), max(j["width"] - win, 0))
     scales = {id(g): quant_scales(g, g_quant) for g, _ in shards}
     per = batch_size // len(shards)
-    outs = []
+    outs, tag = [], {"pass": which}
     for i0 in range(0, len(jobs), batch_size):
-        chunk, ct, rat, zidx, ints = _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size)
-        launched = []
-        for k, (gen, cam_stack) in enumerate(shards):
-            part = slice(k * per, (k + 1) * per)
-            t = lambda a: torch.from_numpy(a[part]).to(cam_stack.device)
-            launched.append(_forward(
-                gen, t(ct), cam_stack, t(zidx), t(ints["x1"]), t(ints["x2"]),
-                t(ints["min_x"]), t(ints["max_x"]), t(rat), t(ints["w0"]),
-                scales=scales[id(gen)], use_bf16=use_bf16, win=win,
-            ))
-        x2_, seg, ph = (torch.cat([o[i].cpu() for o in launched]).numpy() for i in range(3))
-        for k in range(len(chunk)):
-            outs.append((x2_[k, :, :, 0], seg[k, :, :, 0], float(ph[k])))
+        with spans.span("hv.3d.dispatch", rid=rid, **tag):
+            chunk, ct, rat, zidx, ints = _chunk_arrays(jobs, ratios, job_zidx, i0, batch_size)
+            launched = []
+            for k, (gen, cam_stack) in enumerate(shards):
+                part = slice(k * per, (k + 1) * per)
+                t = lambda a: torch.from_numpy(a[part]).to(cam_stack.device)
+                launched.append(_forward(
+                    gen, t(ct), cam_stack, t(zidx), t(ints["x1"]), t(ints["x2"]),
+                    t(ints["min_x"]), t(ints["max_x"]), t(rat), t(ints["w0"]),
+                    scales=scales[id(gen)], use_bf16=use_bf16, win=win,
+                ))
+        with spans.span("hv.3d.readback", rid=rid, **tag):
+            x2_, seg, ph = (torch.cat([o[i].cpu() for o in launched]).numpy() for i in range(3))
+            for k in range(len(chunk)):
+                outs.append((x2_[k, :, :, 0], seg[k, :, :, 0], float(ph[k])))
     return outs
 
 
@@ -379,88 +384,96 @@ def synthesize_volumes(
     if param_dev.type != dev.type:
         raise ValueError(f"generator is on {param_dev}, device={dev}")
 
-    preps = []
-    all_cams = []
-    row_off = 0
-    for ct_vol, label_vol, vert_id, cam_vol in volumes:
-        cam_vol = cam_vol if cam_vol is not None else np.zeros_like(ct_vol, np.float32)
-        vert = label_vol == vert_id
-        other_axes = (0, 1) if axis == 2 else (0, 2)
-        zs = np.nonzero(vert.any(axis=other_axes))[0]
-        if zs.size == 0:
-            preps.append(None)
-            continue
-        z0, z1 = int(zs.min()), int(zs.max())
-        range_length = z1 - z0 + 1
-        new_len = int(range_length * 4 / 5)
-        nz0 = z0 + (range_length - new_len) // 2
-        nz1 = nz0 + new_len - 1
-        center = (nz0 + nz1) // 2
-        z_list = list(range(nz0, nz1 + 1))
-        preps.append(
-            dict(
-                vert_id=vert_id,
-                label_vol=label_vol,
-                z_list=z_list,
-                ratios={z: abs(z - center) / range_length * 2 for z in z_list},
-                ct_state={z: _get_slice(ct_vol, z, axis).astype(np.float64) for z in z_list},
-                lb_state={z: _get_slice(label_vol, z, axis).astype(np.float64) for z in z_list},
-                stack_row={z: row_off + i for i, z in enumerate(z_list)},
+    synthesize_volumes.calls += 1
+    rid = synthesize_volumes.calls
+    with spans.span("hv.3d.prep", rid=rid):
+        preps = []
+        all_cams = []
+        row_off = 0
+        for ct_vol, label_vol, vert_id, cam_vol in volumes:
+            cam_vol = cam_vol if cam_vol is not None else np.zeros_like(ct_vol, np.float32)
+            vert = label_vol == vert_id
+            other_axes = (0, 1) if axis == 2 else (0, 2)
+            zs = np.nonzero(vert.any(axis=other_axes))[0]
+            if zs.size == 0:
+                preps.append(None)
+                continue
+            z0, z1 = int(zs.min()), int(zs.max())
+            range_length = z1 - z0 + 1
+            new_len = int(range_length * 4 / 5)
+            nz0 = z0 + (range_length - new_len) // 2
+            nz1 = nz0 + new_len - 1
+            center = (nz0 + nz1) // 2
+            z_list = list(range(nz0, nz1 + 1))
+            preps.append(
+                dict(
+                    vert_id=vert_id,
+                    label_vol=label_vol,
+                    z_list=z_list,
+                    ratios={z: abs(z - center) / range_length * 2 for z in z_list},
+                    ct_state={z: _get_slice(ct_vol, z, axis).astype(np.float64)
+                              for z in z_list},
+                    lb_state={z: _get_slice(label_vol, z, axis).astype(np.float64)
+                              for z in z_list},
+                    stack_row={z: row_off + i for i, z in enumerate(z_list)},
+                )
             )
-        )
-        # the CAM never changes across passes: one device-resident uint8
-        # stack for all volumes, gathered by row index on the device
-        all_cams.append(
-            np.stack([(_get_slice(cam_vol, z, axis) * 255).astype(np.uint8) for z in z_list])
-        )
-        row_off += len(z_list)
+            # the CAM never changes across passes: one device-resident uint8
+            # stack for all volumes, gathered by row index on the device
+            all_cams.append(
+                np.stack([(_get_slice(cam_vol, z, axis) * 255).astype(np.uint8) for z in z_list])
+            )
+            row_off += len(z_list)
 
-    if row_off == 0:
-        return [
-            (np.zeros_like(v[0], np.float64), np.zeros_like(v[0], np.float64))
-            for v in volumes
-        ]
-    cams = np.concatenate(all_cams)
-    bucket = _cam_bucket(row_off)
-    cam_host = torch.from_numpy(np.pad(cams, ((0, bucket - row_off), (0, 0), (0, 0))))
-    cam_stack = cam_host.to(dev)
-    shards = [(gen, cam_stack)]
-    if mesh is not None:
-        stacks = {d: cam_host.to(d) for d in set(mesh.data_devices)}
-        shards = [(g, stacks[d]) for g, d in zip(replicate_state(gen, mesh), mesh.data_devices)]
+        if row_off == 0:
+            return [
+                (np.zeros_like(v[0], np.float64), np.zeros_like(v[0], np.float64))
+                for v in volumes
+            ]
+        cams = np.concatenate(all_cams)
+        bucket = _cam_bucket(row_off)
+        cam_host = torch.from_numpy(np.pad(cams, ((0, bucket - row_off), (0, 0), (0, 0))))
+        cam_stack = cam_host.to(dev)
+        shards = [(gen, cam_stack)]
+        if mesh is not None:
+            stacks = {d: cam_host.to(d) for d in set(mesh.data_devices)}
+            shards = [(g, stacks[d])
+                      for g, d in zip(replicate_state(gen, mesh), mesh.data_devices)]
 
-    g_quant = None if quant == "auto" else quant
-    if quant == "auto" and quant_store and os.path.exists(quant_store):
-        g_quant = _load_quant_store(quant_store, gen)
-    if g_quant is not None:
-        g_quant = {k: v.to(dev) for k, v in g_quant.items()}
+        g_quant = None if quant == "auto" else quant
+        if quant == "auto" and quant_store and os.path.exists(quant_store):
+            g_quant = _load_quant_store(quant_store, gen)
+        if g_quant is not None:
+            g_quant = {k: v.to(dev) for k, v in g_quant.items()}
 
     # three passes: upper neighbour, lower neighbour, target; jobs from
     # every volume share the dispatches
     for which, nb in (("upper", -1), ("lower", +1), ("target", 0)):
-        jobs, job_refs, job_ratio, job_rows = [], [], [], []
-        for prep in preps:
-            if prep is None:
-                continue
-            vert_id, label_vol = prep["vert_id"], prep["label_vol"]
-            vid = vert_id + nb
-            for z in prep["z_list"]:
-                # both neighbour-presence checks read the original labels
-                if which == "upper" and not (
-                    vert_id > 8 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
-                ):
+        tag = {"pass": which}
+        with spans.span("hv.3d.geometry", rid=rid, **tag):
+            jobs, job_refs, job_ratio, job_rows = [], [], [], []
+            for prep in preps:
+                if prep is None:
                     continue
-                if which == "lower" and not (
-                    vert_id < 24 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
-                ):
-                    continue
-                geo = _slice_geometry(prep["lb_state"][z], prep["ct_state"][z], vid)
-                if geo is None:
-                    continue
-                jobs.append(geo)
-                job_refs.append((prep, z, vid))
-                job_ratio.append(prep["ratios"][z])
-                job_rows.append(prep["stack_row"][z])
+                vert_id, label_vol = prep["vert_id"], prep["label_vol"]
+                vid = vert_id + nb
+                for z in prep["z_list"]:
+                    # both neighbour-presence checks read the original labels
+                    if which == "upper" and not (
+                        vert_id > 8 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
+                    ):
+                        continue
+                    if which == "lower" and not (
+                        vert_id < 24 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
+                    ):
+                        continue
+                    geo = _slice_geometry(prep["lb_state"][z], prep["ct_state"][z], vid)
+                    if geo is None:
+                        continue
+                    jobs.append(geo)
+                    job_refs.append((prep, z, vid))
+                    job_ratio.append(prep["ratios"][z])
+                    job_rows.append(prep["stack_row"][z])
         if quant == "auto" and g_quant is None and jobs:
             # one calibration forward on this call's first real batch
             _, ct, rat, zidx, ints = _chunk_arrays(
@@ -474,28 +487,34 @@ def synthesize_volumes(
             g_quant = calib_to_quant(calib, percentile=INT8_CALIB_PERCENTILE)
             if quant_store:
                 _save_quant_store(quant_store, g_quant, gen)
-        outs = _run_pass(shards, jobs, job_ratio, job_rows, batch_size, use_bf16, g_quant)
-        for geo, (prep, z, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
-            ct_new, lb_new, _ = _reassemble(
-                geo, x2_, seg, ph, prep["ct_state"][z], prep["lb_state"][z], vid
-            )
-            prep["ct_state"][z] = ct_new
-            prep["lb_state"][z] = lb_new
+        outs = _run_pass(shards, jobs, job_ratio, job_rows, batch_size, use_bf16, g_quant,
+                         rid=rid, which=which)
+        with spans.span("hv.3d.reassemble", rid=rid, **tag):
+            for geo, (prep, z, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
+                ct_new, lb_new, _ = _reassemble(
+                    geo, x2_, seg, ph, prep["ct_state"][z], prep["lb_state"][z], vid
+                )
+                prep["ct_state"][z] = ct_new
+                prep["lb_state"][z] = lb_new
 
-    results = []
-    for (ct_vol, *_), prep in zip(volumes, preps):
-        ct_fake = np.zeros_like(ct_vol, np.float64)
-        lb_fake = np.zeros_like(ct_vol, np.float64)
-        if prep is not None:
-            for z in prep["z_list"]:
-                if axis == 2:
-                    ct_fake[:, :, z] = prep["ct_state"][z]
-                    lb_fake[:, :, z] = prep["lb_state"][z]
-                else:
-                    ct_fake[:, z, :] = prep["ct_state"][z]
-                    lb_fake[:, z, :] = prep["lb_state"][z]
-        results.append((ct_fake, lb_fake))
+    with spans.span("hv.3d.assemble", rid=rid):
+        results = []
+        for (ct_vol, *_), prep in zip(volumes, preps):
+            ct_fake = np.zeros_like(ct_vol, np.float64)
+            lb_fake = np.zeros_like(ct_vol, np.float64)
+            if prep is not None:
+                for z in prep["z_list"]:
+                    if axis == 2:
+                        ct_fake[:, :, z] = prep["ct_state"][z]
+                        lb_fake[:, :, z] = prep["lb_state"][z]
+                    else:
+                        ct_fake[:, z, :] = prep["ct_state"][z]
+                        lb_fake[:, z, :] = prep["lb_state"][z]
+            results.append((ct_fake, lb_fake))
     return results
+
+
+synthesize_volumes.calls = 0  # patient calls in this process: the request id of its spans
 
 
 def synthesize_volume(

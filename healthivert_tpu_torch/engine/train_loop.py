@@ -29,6 +29,7 @@ from ..data.prefetch import prefetch_to_device, to_device
 from ..models.pix2pix import LRSchedule, Pix2PixConfig, generator_forward, init_state, train_step
 from ..parallel import distributed
 from ..parallel.mesh import make_mesh, pad_batch, replicate_state
+from ..utils import spans
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from .evaluate import evaluate_model
@@ -96,7 +97,9 @@ class _Profiler:
     [START, STOP), written to {run_dir}/profile as a Chrome trace, with the
     count of its kernel launches and of those without a kernel record
     (`trace_kernel_records`): the profiler can lose the records of a
-    session's first kernels."""
+    session's first kernels. The program's span recorder (utils/spans.py)
+    is on for the same steps; its records go beside the trace as
+    spans.json, on the clock of the trace's host records."""
 
     def __init__(self, run_dir):
         self.out_dir = os.path.join(run_dir, "profile")
@@ -110,13 +113,17 @@ class _Profiler:
             acts.append(ProfilerActivity.CUDA)
         self.prof = profile(activities=acts)
         self.prof.start()
+        spans.enable()
 
     def stop(self, why=""):
         self.prof.stop()
+        spans.disable()
         os.makedirs(self.out_dir, exist_ok=True)
         path = os.path.join(self.out_dir, "trace.json")
         self.prof.export_chrome_trace(path)
         self.prof = None
+        with open(os.path.join(self.out_dir, "spans.json"), "w") as f:
+            json.dump([r._asdict() for r in spans.drain()], f)
         launches, lost = trace_kernel_records(path)
         print(f"profiler trace{why} written to {self.out_dir}: {launches} kernel launches, "
               f"{lost} without a kernel record")
@@ -238,17 +245,22 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
         lr = opt.lr * schedule.scale(epoch, last_metric)
         print(f"learning rate {lr:.7f} for epoch {epoch}")
         epoch_iter = 0
-        iter_data_time = time.time()
+        # time.time_ns: the clock of the spans (and of the profiler's host records)
+        iter_data_time = time.time_ns()
         for batch in prefetch_to_device(dataset, place, depth=2):
-            iter_start = time.time()
-            t_data = iter_start - iter_data_time
+            iter_start = time.time_ns()
+            t_data = (iter_start - iter_data_time) / 1e9
             total_iters += opt.batch_size
             epoch_iter += opt.batch_size
             # >= so that a --continue_train resume landing inside [START,
             # STOP) still gives a (shortened) trace
             if profile_steps and not profiler.on and state.step >= profile_steps[0]:
                 profiler.start()
-            state, losses = train_step(state, batch, lr, cfg)
+            # the wait for the batch, the prefetch thread's restart at an
+            # epoch's start included
+            spans.record("hv.train.data", iter_data_time, iter_start, rid=state.step + 1)
+            with spans.span("hv.train.step", rid=state.step + 1):
+                state, losses = train_step(state, batch, lr, cfg)
             if on_step is not None:
                 on_step(state.step, losses)
             if profiler.on and state.step >= profile_steps[1]:
@@ -256,17 +268,18 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
                 profile_steps = None  # one-shot window
 
             if total_iters % opt.print_freq < opt.batch_size:
-                try:
-                    host = _check_finite(losses, state.step)
-                except FloatingPointError:
-                    if profiler.on:  # the diverging steps' trace is the one wanted
-                        profiler.stop(" (divergence abort)")
-                    raise
-                distributed.check_replicated(nets, f"networks at step {state.step}")
-                t_comp = (time.time() - iter_start) / opt.batch_size
-                if is_main:
-                    visualizer.print_current_losses(epoch, epoch_iter, host, t_comp, t_data)
-                    visualizer.log_scalars("train", host, total_iters)
+                with spans.span("hv.train.log", rid=state.step):
+                    try:
+                        host = _check_finite(losses, state.step)
+                    except FloatingPointError:
+                        if profiler.on:  # the diverging steps' trace is the one wanted
+                            profiler.stop(" (divergence abort)")
+                        raise
+                    distributed.check_replicated(nets, f"networks at step {state.step}")
+                    t_comp = (time.time_ns() - iter_start) / 1e9 / opt.batch_size
+                    if is_main:
+                        visualizer.print_current_losses(epoch, epoch_iter, host, t_comp, t_data)
+                        visualizer.log_scalars("train", host, total_iters)
 
             if is_main and getattr(opt, "display_freq", 0) and \
                     total_iters % opt.display_freq < opt.batch_size:
@@ -274,23 +287,27 @@ def run_training(opt, opt_test=None, max_steps=None, profile_steps=None, device=
 
             if total_iters % opt.save_latest_freq < opt.batch_size:
                 tag = f"iter_{total_iters}" if opt.save_by_iter else "latest"
-                ckpt.save_checkpoint(state, run_dir, tag)
-            iter_data_time = time.time()
+                with spans.span("hv.train.save", rid=state.step):
+                    ckpt.save_checkpoint(state, run_dir, tag)
+            iter_data_time = time.time_ns()
             if max_steps is not None and state.step >= max_steps:
                 done = True
                 break
 
         if epoch % opt.save_epoch_freq == 0 or done:
-            ckpt.save_checkpoint(state, run_dir, "latest")
-            ckpt.save_checkpoint(state, run_dir, epoch)
+            with spans.span("hv.train.save", rid=state.step):
+                ckpt.save_checkpoint(state, run_dir, "latest")
+                ckpt.save_checkpoint(state, run_dir, epoch)
 
         if eval_dataset is not None and epoch % getattr(opt, "eval_freq", 15) == 0:
             # every rank evaluates the whole split on its replica; rank 0's
             # averages go to all, so the plateau policy's metric, and the
             # learning rate, stay the same on every rank
-            avg = evaluate_model(state.gen, eval_dataset, cfg, epoch=epoch,
-                                 out_dir=os.path.join(run_dir, "eval_imgs") if is_main else None)
-            avg = _from_rank0(avg, dev)
+            with spans.span("hv.train.eval", rid=state.step):
+                avg = evaluate_model(state.gen, eval_dataset, cfg, epoch=epoch,
+                                     out_dir=os.path.join(run_dir, "eval_imgs")
+                                     if is_main else None)
+                avg = _from_rank0(avg, dev)
             if avg:
                 last_metric = -avg["ssim"]  # plateau policy input (minimized)
                 if is_main:
