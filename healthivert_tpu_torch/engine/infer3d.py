@@ -6,7 +6,10 @@ target on the twice-healed context) runs as batched generator forwards over
 all slices of the vertebrae's central 4/5 z-range, shared across volumes.
 Host numpy handles the per-slice band geometry between passes (it depends on
 the evolving label state); the band planes are built on the device from the
-raw uint8 slices and four scalars per slice.
+raw uint8 slices and four scalars per slice. The host state is slice-major:
+each vertebra's processed z-range is one contiguous (Z, H, W) CT stack and
+one label stack, whose rows the geometry reads and the paste-back writes in
+place; the output volumes are written from them once, at the end.
 
 Documented deviation, kept from the JAX package: the reference runs the
 target pass only inside its "lower neighbour missing" branch, so slices
@@ -64,6 +67,9 @@ MAXHEIGHT = 40
 # rows above the vertebra top covers every height <= 44; taller vertebrae
 # widen the pass's window to the next 32-row bucket (_run_pass).
 WINDOW = 64
+
+# bytes of a volume read at a time by the transposed copy into a stack
+_BLOCK_BYTES = 1 << 18
 
 
 def _band_inputs(ct, cam, x1, x2, min_x, max_x):
@@ -134,17 +140,40 @@ def _forward(gen, *args, **kwargs):
 _forward.dispatches = 0  # generator forwards dispatched in this process
 
 
-def _slice_geometry(label_sl: np.ndarray, ct_sl: np.ndarray, vert_id: int):
-    """Band geometry scalars for one slice; None if the vertebra is absent
-    after connected-component cleanup."""
-    vert = (label_sl == vert_id).astype(np.float64)
-    vert = remove_small_cc(vert, 50)
-    coords = np.argwhere(vert)
-    if coords.size == 0:
+def _clean_vertebra(label_row: np.ndarray, vert_id: int):
+    """The pixels of `label_row == vert_id` that the 8-connected cleanup
+    `remove_small_cc(mask, 50)` keeps, as (kept, r0, c0): a boolean box whose
+    origin is slice pixel (r0, c0); None where no pixel has the id.
+
+    Only the bounding box of the id's pixels is labelled: every component
+    lies inside it, so the box keeps what the whole slice would. Counted in
+    `synthesize_volumes.cc_pixels` (pixels labelled) beside
+    `synthesize_volumes.slice_pixels` (pixels of the slices cleaned)."""
+    vert = label_row == vert_id
+    in_rows = np.flatnonzero(vert.any(axis=1))
+    if in_rows.size == 0:
         return None
-    rows = coords[:, 0]
+    r0, r1 = int(in_rows[0]), int(in_rows[-1]) + 1
+    in_cols = np.flatnonzero(vert[r0:r1].any(axis=0))
+    c0, c1 = int(in_cols[0]), int(in_cols[-1]) + 1
+    box = vert[r0:r1, c0:c1]
+    synthesize_volumes.cc_pixels += box.size
+    synthesize_volumes.slice_pixels += vert.size
+    return remove_small_cc(box, 50), r0, c0
+
+
+def _slice_geometry(label_row: np.ndarray, ct_row: np.ndarray, vert_id: int):
+    """Band geometry scalars for one slice (rows of the per-vertebra stacks);
+    None if the vertebra is absent after connected-component cleanup."""
+    cleaned = _clean_vertebra(label_row, vert_id)
+    if cleaned is None:
+        return None
+    kept, r0, _ = cleaned
+    rows = np.nonzero(kept)[0] + r0  # slice rows in row-major order
+    if rows.size == 0:
+        return None
     x1, x2 = int(rows.min()), int(rows.max())
-    width = label_sl.shape[0]
+    width = label_row.shape[0]
     height = x2 - x1
     if height > MAXHEIGHT:
         x_mean = int(rows.mean())
@@ -159,42 +188,52 @@ def _slice_geometry(label_sl: np.ndarray, ct_sl: np.ndarray, vert_id: int):
         min_x = mask_x - MAXHEIGHT // 2
     max_x = min_x + MAXHEIGHT
 
-    ct_u8 = ct_sl.astype(np.uint8)
+    ct_u8 = ct_row.astype(np.uint8)
     # "w0" (the output crop origin) is set by _run_pass once the pass's
     # window size is known
     return dict(x1=x1, x2=x2, height=height, min_x=min_x, max_x=max_x,
                 ct_u8=ct_u8, width=width)
 
 
-def _reassemble(geo, x_stage2_win, fine_seg_win, pred_h, ct_sl, label_sl, vert_id):
-    """SHRM paste-back on the host. Returns (ct_new, label_new, height).
+def _reassemble(geo, x_stage2_win, fine_seg_win, pred_h, ct_row, label_row, vert_id):
+    """SHRM paste-back on the host, in place: ct_row and label_row (the
+    slice's rows of the per-vertebra stacks) become the pasted slice; rows that
+    no paste reaches become zero.
     x_stage2_win / fine_seg_win are the device outputs cropped to the window
     rows starting at geo['w0'] (slice row r maps to r - w0)."""
     x1, x2, height, w0 = geo["x1"], geo["x2"], geo["height"], geo["w0"]
-    h = ct_sl.shape[0]
+    h = ct_row.shape[0]
     ph = math.ceil(pred_h)
     if ph < height:
         ph = height
     hd = ph - height
     x_upper = x1 - hd // 2
     x_bottom = x_upper + ph
+    band = x_bottom > x_upper >= 0
+    tail_rows = slice(x2, x2 + h - x_bottom)
 
-    fake = np.zeros_like(ct_sl, np.float64)
+    # every source row is read before any row of the slice is written
+    ori = geo["ct_u8"]
+    ct_head = ((ori[hd // 2 : x1].astype(np.float64) / 255.0 * 2 - 1) + 1) * 127.5
+    lb_head = label_row[hd // 2 : x1].copy()
+    ct_tail = ori[tail_rows].astype(np.float64)
+    lb_tail = label_row[tail_rows].copy()
     # x_stage2 arrives already mapped to the uint8 CT range
-    if x_bottom > x_upper >= 0:
-        fake[x_upper:x_bottom] = x_stage2_win[x_upper - w0 : x_bottom - w0]
-    ori = geo["ct_u8"].astype(np.float64)
-    fake[:x_upper] = ((ori[hd // 2 : x1] / 255.0 * 2 - 1) + 1) * 127.5
-    tail = ori[x2 : x2 + h - x_bottom]
-    fake[x_bottom : x_bottom + tail.shape[0]] = tail
+    ct_band = x_stage2_win[x_upper - w0 : x_bottom - w0] if band else None
+    lb_band = fine_seg_win[x_upper - w0 : x_bottom - w0] * vert_id if band else None
 
-    seg = np.zeros_like(label_sl, np.float64)
-    if x_bottom > x_upper >= 0:
-        seg[x_upper:x_bottom] = fine_seg_win[x_upper - w0 : x_bottom - w0] * vert_id
-    seg[:x_upper] = label_sl[hd // 2 : x1]
-    stail = label_sl[x2 : x2 + h - x_bottom]
-    seg[x_bottom : x_bottom + stail.shape[0]] = stail
-    return fake, seg, height
+    for row, mid, head, tail in ((ct_row, ct_band, ct_head, ct_tail),
+                                 (label_row, lb_band, lb_head, lb_tail)):
+        pasted = np.zeros(h, bool)
+        pasted[:x_upper] = True
+        if band:
+            pasted[x_upper:x_bottom] = True
+        pasted[x_bottom : x_bottom + tail.shape[0]] = True
+        row[~pasted] = 0
+        if band:
+            row[x_upper:x_bottom] = mid
+        row[:x_upper] = head
+        row[x_bottom : x_bottom + tail.shape[0]] = tail
 
 
 _INT_KEYS = ("x1", "x2", "min_x", "max_x", "w0")
@@ -257,8 +296,26 @@ def _run_pass(shards, jobs, ratios, job_zidx, batch_size=32, use_bf16=True, g_qu
     return outs
 
 
-def _get_slice(vol, z, axis):
-    return vol[:, :, z] if axis == 2 else vol[:, z, :]
+def _stack(vol, axis, zr, dtype) -> np.ndarray:
+    """The slices `zr` of `vol` along `axis` as one C-ordered (Z, H, W)
+    array of `dtype`, always a copy. Transposed a block of rows at a time,
+    so that the block being read stays in the cache."""
+    src = np.moveaxis(vol, axis, 0)[zr]
+    out = np.empty(src.shape, dtype)
+    step = max(1, _BLOCK_BYTES // max(1, src[:, :1].nbytes))
+    for r in range(0, out.shape[1], step):
+        out[:, r : r + step] = src[:, r : r + step]
+    return out
+
+
+def _label_dtype(dtype, vert_id) -> np.dtype:
+    """The label stack's dtype: the label volume's own where it holds every
+    id a pass writes (vert_id and its neighbours) exactly, else float64,
+    the output's dtype."""
+    ids = np.array([vert_id - 1, vert_id, vert_id + 1])
+    with np.errstate(invalid="ignore"):
+        exact = np.array_equal(ids.astype(dtype).astype(ids.dtype), ids)
+    return np.dtype(dtype) if exact else np.dtype(np.float64)
 
 
 def _cam_bucket(n: int) -> int:
@@ -387,11 +444,14 @@ def synthesize_volumes(
     synthesize_volumes.calls += 1
     rid = synthesize_volumes.calls
     with spans.span("hv.3d.prep", rid=rid):
+        # each vertebra's working state is slice-major over its processed
+        # z-range: a float64 CT stack (not integer after a pass) and a label
+        # stack in the volume's dtype (passes write integer ids), rows
+        # written in place pass after pass
         preps = []
         all_cams = []
         row_off = 0
         for ct_vol, label_vol, vert_id, cam_vol in volumes:
-            cam_vol = cam_vol if cam_vol is not None else np.zeros_like(ct_vol, np.float32)
             vert = label_vol == vert_id
             other_axes = (0, 1) if axis == 2 else (0, 2)
             zs = np.nonzero(vert.any(axis=other_axes))[0]
@@ -404,26 +464,25 @@ def synthesize_volumes(
             nz0 = z0 + (range_length - new_len) // 2
             nz1 = nz0 + new_len - 1
             center = (nz0 + nz1) // 2
-            z_list = list(range(nz0, nz1 + 1))
+            zr = slice(nz0, nz1 + 1)
+            lb = _stack(label_vol, axis, zr, _label_dtype(label_vol.dtype, vert_id))
             preps.append(
                 dict(
                     vert_id=vert_id,
-                    label_vol=label_vol,
-                    z_list=z_list,
-                    ratios={z: abs(z - center) / range_length * 2 for z in z_list},
-                    ct_state={z: _get_slice(ct_vol, z, axis).astype(np.float64)
-                              for z in z_list},
-                    lb_state={z: _get_slice(label_vol, z, axis).astype(np.float64)
-                              for z in z_list},
-                    stack_row={z: row_off + i for i, z in enumerate(z_list)},
+                    zr=zr,
+                    ratios=[abs(z - center) / range_length * 2 for z in range(nz0, nz1 + 1)],
+                    ct=_stack(ct_vol, axis, zr, np.float64),
+                    lb=lb,
+                    row0=row_off,
                 )
             )
             # the CAM never changes across passes: one device-resident uint8
             # stack for all volumes, gathered by row index on the device
-            all_cams.append(
-                np.stack([(_get_slice(cam_vol, z, axis) * 255).astype(np.uint8) for z in z_list])
-            )
-            row_off += len(z_list)
+            if cam_vol is None:
+                all_cams.append(np.zeros(lb.shape, np.uint8))
+            else:
+                all_cams.append((_stack(cam_vol, axis, zr, cam_vol.dtype) * 255).astype(np.uint8))
+            row_off += len(lb)
 
         if row_off == 0:
             return [
@@ -455,25 +514,30 @@ def synthesize_volumes(
             for prep in preps:
                 if prep is None:
                     continue
-                vert_id, label_vol = prep["vert_id"], prep["label_vol"]
+                vert_id, ct_rows, lb_rows = prep["vert_id"], prep["ct"], prep["lb"]
                 vid = vert_id + nb
-                for z in prep["z_list"]:
-                    # both neighbour-presence checks read the original labels
-                    if which == "upper" and not (
-                        vert_id > 8 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
-                    ):
+                if which == "upper":
+                    # both neighbour-presence checks read the original
+                    # labels, which the stack holds until the first paste
+                    prep["present"] = {
+                        d: np.count_nonzero(lb_rows == vert_id + d, axis=(1, 2)) > 200
+                        for d in (-1, +1)
+                    }
+                if which == "upper" and not vert_id > 8:
+                    continue
+                if which == "lower" and not vert_id < 24:
+                    continue
+                present = prep["present"].get(nb)
+                for i in range(len(ct_rows)):
+                    if present is not None and not present[i]:
                         continue
-                    if which == "lower" and not (
-                        vert_id < 24 and np.sum(_get_slice(label_vol, z, axis) == vid) > 200
-                    ):
-                        continue
-                    geo = _slice_geometry(prep["lb_state"][z], prep["ct_state"][z], vid)
+                    geo = _slice_geometry(lb_rows[i], ct_rows[i], vid)
                     if geo is None:
                         continue
                     jobs.append(geo)
-                    job_refs.append((prep, z, vid))
-                    job_ratio.append(prep["ratios"][z])
-                    job_rows.append(prep["stack_row"][z])
+                    job_refs.append((prep, i, vid))
+                    job_ratio.append(prep["ratios"][i])
+                    job_rows.append(prep["row0"] + i)
         if quant == "auto" and g_quant is None and jobs:
             # one calibration forward on this call's first real batch
             _, ct, rat, zidx, ints = _chunk_arrays(
@@ -490,31 +554,28 @@ def synthesize_volumes(
         outs = _run_pass(shards, jobs, job_ratio, job_rows, batch_size, use_bf16, g_quant,
                          rid=rid, which=which)
         with spans.span("hv.3d.reassemble", rid=rid, **tag):
-            for geo, (prep, z, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
-                ct_new, lb_new, _ = _reassemble(
-                    geo, x2_, seg, ph, prep["ct_state"][z], prep["lb_state"][z], vid
-                )
-                prep["ct_state"][z] = ct_new
-                prep["lb_state"][z] = lb_new
+            for geo, (prep, i, vid), (x2_, seg, ph) in zip(jobs, job_refs, outs):
+                _reassemble(geo, x2_, seg, ph, prep["ct"][i], prep["lb"][i], vid)
 
     with spans.span("hv.3d.assemble", rid=rid):
+        # zeros, then the processed range in one transposed copy (labels
+        # widened to float64 here); np.zeros_like would also write every
+        # page that the copy writes anyway
         results = []
         for (ct_vol, *_), prep in zip(volumes, preps):
-            ct_fake = np.zeros_like(ct_vol, np.float64)
-            lb_fake = np.zeros_like(ct_vol, np.float64)
+            order = "F" if np.isfortran(ct_vol) else "C"
+            ct_fake = np.zeros(ct_vol.shape, np.float64, order=order)
+            lb_fake = np.zeros(ct_vol.shape, np.float64, order=order)
             if prep is not None:
-                for z in prep["z_list"]:
-                    if axis == 2:
-                        ct_fake[:, :, z] = prep["ct_state"][z]
-                        lb_fake[:, :, z] = prep["lb_state"][z]
-                    else:
-                        ct_fake[:, z, :] = prep["ct_state"][z]
-                        lb_fake[:, z, :] = prep["lb_state"][z]
+                np.moveaxis(ct_fake, axis, 0)[prep["zr"]] = prep["ct"]
+                np.moveaxis(lb_fake, axis, 0)[prep["zr"]] = prep["lb"]
             results.append((ct_fake, lb_fake))
     return results
 
 
 synthesize_volumes.calls = 0  # patient calls in this process: the request id of its spans
+synthesize_volumes.cc_pixels = 0  # pixels the geometry's cleanup labelled (the vertebra's box)
+synthesize_volumes.slice_pixels = 0  # pixels of the slices that cleanup was run on
 
 
 def synthesize_volume(
